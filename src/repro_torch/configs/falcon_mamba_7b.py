@@ -1,0 +1,9 @@
+"""Falcon-Mamba-7B — pure Mamba-1, attention-free [arXiv:2410.05355]."""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="falcon-mamba-7b", family="ssm",
+    n_layers=64, d_model=4096, n_heads=0, n_kv_heads=0,
+    d_ff=0, vocab_size=65024,
+    ssm_version=1, ssm_state=16, ssm_expand=2, rope_style="none",
+))

@@ -1,0 +1,11 @@
+"""Zamba2-1.2B — Mamba2 backbone + shared attention block applied at
+intervals [arXiv:2411.15242; hf]."""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="zamba2-1.2b", family="hybrid",
+    n_layers=38, d_model=2048, n_heads=32, n_kv_heads=32,
+    d_ff=8192, vocab_size=32000,
+    ssm_version=2, ssm_state=64, ssm_expand=2, ssm_head_dim=64,
+    shared_attn_every=6, mlp_act="gelu",
+))

@@ -1,0 +1,129 @@
+"""The emulation surface: matmul / quantize under FPMax semantics
+(counterpart of ``repro.numerics.emulate``).
+
+Every consumer that wants "this computation, under the numerics of that FPU"
+routes through here; ``repro_torch.kernels.ops`` and
+``repro_torch.models.numerics`` are thin adapters.
+
+Accumulation styles (see kernels/fma_emu.py): ``'fused'`` (extended
+accumulator, one final round), ``'cascade'`` (round-after-add each k block)
+and ``'cascade_fwd'`` (rounded partial products, unrounded accumulator).
+
+``impl`` selects the path: ``'fused'`` is the K1 kernel (CUDA tensors) or
+its plain tile replay (CPU tensors), ``'pallas'`` the K3 kernel (the name of
+the JAX route it stands for) or its plain version, ``'ref'`` the plain
+k-block reference the JAX package runs on the CPU, and ``'auto'`` picks
+``'fused'`` on CUDA and ``'ref'`` on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.formats import FloatFormat
+from repro_torch.numerics.registry import get_format
+
+STYLES = ("fused", "cascade", "cascade_fwd")
+
+
+def accum_style_for(style: str, forwarding: bool = True) -> str:
+    """Map an FPU FMAC style ('fma' | 'cma') to the emulation accumulation
+    style."""
+    if style == "fma":
+        return "fused"
+    if style != "cma":
+        raise ValueError(f"unknown FMAC style {style!r}")
+    return "cascade_fwd" if forwarding else "cascade"
+
+
+def _on_cuda(device: torch.device) -> bool:
+    return device.type == "cuda"
+
+
+def emulated_matmul(a, b, *, fmt: FloatFormat | str, style: str = "fused",
+                    out_fmt: FloatFormat | None = None, impl: str = "auto", scaled: bool = False,
+                    device=None) -> torch.Tensor:
+    """(..., M, K) @ (K, N) with FPMax-emulated numerics, f32 out.
+
+    Runs on ``device`` (default CUDA; raises if it is absent).  Every path
+    rounds at 128-deep k blocks, the edges the CUDA kernels round at.
+    ``scaled=True`` enables exact per-tile pow2 scaling with fused dequant
+    ('fused' and 'ref' only)."""
+    fmt = get_format(fmt)
+    if style not in STYLES:
+        raise ValueError(f"style must be one of {STYLES}, got {style!r}")
+    dev = resolve_device(device)
+    a = torch.as_tensor(a, device=dev)
+    b = torch.as_tensor(b, device=dev)
+    if impl == "auto":
+        impl = "fused" if _on_cuda(dev) else "ref"
+    from repro_torch.kernels import fma_emu as _fma_emu
+    from repro_torch.kernels import fused as _fused
+    from repro_torch.kernels import ref as _ref
+
+    batch_shape = a.shape[:-2]
+    m, kdim = a.shape[-2:]
+    if impl == "fused":
+        a3 = a.reshape((-1, m, kdim)) if batch_shape else a
+        out = _fused.fused_qmm(a3, b, fmt=fmt, style=style, out_fmt=out_fmt,
+                               scaled=scaled)
+        return out.reshape(batch_shape + out.shape[-2:])
+    if impl not in ("pallas", "ref"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if scaled and impl != "ref":
+        raise ValueError(f"scaled=True requires impl 'fused' / 'ref', got "
+                         f"{impl!r}")
+    if scaled:
+        # one scale tile per slice, as the JAX path vmaps fused_qmm_ref
+        a3 = a.reshape((-1, m, kdim))
+        out = _fused.fused_qmm_ref(a3, b, fmt=fmt, style=style,
+                                   out_fmt=out_fmt, scaled=True)
+        return out.reshape(batch_shape + (m, b.shape[1]))
+    # unscaled rows are independent: the slices fold into one 2-D product
+    a2 = a.reshape((-1, kdim))
+    fn = _fma_emu.fma_emu_matmul if impl == "pallas" \
+        else _ref.fma_emu_matmul_ref
+    out = fn(a2, b, fmt=fmt, style=style, out_fmt=out_fmt)
+    return out.reshape(batch_shape + (m, b.shape[1]))
+
+
+def matmul_for_policy(a, b, policy, **kw) -> torch.Tensor:
+    """``emulated_matmul`` under a chip ``NumericsPolicy`` (its format and
+    kernel accumulation style)."""
+    return emulated_matmul(a, b, fmt=policy.fmt, style=policy.kernel_style,
+                           **kw)
+
+
+def policy_matmul(x: torch.Tensor, w: torch.Tensor, policy=None):
+    """x: (..., K) @ w: (K, N) under an optional numerics policy.
+
+    Inert policies (or ``policy=None``) run the native matmul in the
+    operands' dtype; emulating policies route through ``emulated_matmul``
+    on x's device.  The kernel widens bf16 operands on load, so weights are
+    passed as they are (no f32 copy per call); the result is cast back to
+    x's dtype."""
+    if policy is None or not getattr(policy, "emulate", False):
+        return torch.matmul(x, w)
+    lead = x.shape[:-1]
+    x2 = x.reshape((-1, x.shape[-1]))
+    out = emulated_matmul(x2, w, fmt=get_format(policy.fmt),
+                          style=policy.accum_style, device=x.device)
+    return out.reshape(lead + (w.shape[-1],)).to(x.dtype)
+
+
+def quantize_tensor(x, *, fmt: FloatFormat | str, impl: str = "auto",
+                    device=None) -> torch.Tensor:
+    """Round a tensor onto fmt's grid: the K2 kernel on CUDA ('pallas',
+    the default there), the plain version ('ref') on the CPU."""
+    fmt = get_format(fmt)
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, device=dev)
+    if impl == "auto":
+        impl = "pallas" if _on_cuda(dev) else "ref"
+    from repro_torch.kernels import quantize_kernel as _qk
+    from repro_torch.kernels import ref as _ref
+    if impl == "pallas":
+        return _qk.quantize_nd(x, fmt=fmt)
+    if impl == "ref":
+        return _ref.quantize_ref(x, fmt=fmt)
+    raise ValueError(f"unknown impl {impl!r}")

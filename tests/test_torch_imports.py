@@ -1,0 +1,114 @@
+"""Package rules of the port: what it imports, where it runs, what the CUDA
+wrappers accept, and that its configuration data is the JAX package's.
+
+  * no module of ``src/repro_torch`` and no line of ``chip_smoke.py``
+    imports ``jax`` or any module of ``repro`` (an AST scan);
+  * an entry point given no device raises when CUDA is absent: there is no
+    silent CPU fallback;
+  * the wrappers' operand checks and the build helper work without a card
+    or ``nvcc`` (nothing is compiled at import).
+"""
+import ast
+import dataclasses
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro_torch.configs import base as tbase
+from repro_torch.core import formats as tf
+from repro_torch.kernels import _build
+from repro_torch.kernels import fused as tfused
+from repro_torch.kernels.fma_emu import fma_emu_matmul
+from repro_torch.kernels.quantize_kernel import quantize_nd
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, (str(path), bad)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.models import LM
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.numerics import emulated_matmul, quantize_tensor
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tbase.get_config("tinyllama-1.1b").reduced()
+    a = np.ones((4, 8), np.float32)
+    calls = [lambda: LM(cfg),
+             lambda: emulated_matmul(a, a.T, fmt="bf16"),
+             lambda: quantize_tensor(a, fmt="bf16"),
+             lambda: params_from_jax({}, cfg)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # the same calls run when the caller asks for the CPU
+    assert LM(cfg, device="cpu").device.type == "cpu"
+    assert emulated_matmul(a, a.T, fmt="bf16", device="cpu").shape == (4, 4)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    a, b = torch.ones(8, 256), torch.ones(256, 8)
+    for fmt, style, b_ in ((tf.FP64, "fused", b), (tf.BF16, "nope", b),
+                           (tf.BF16, "fused", b.to("meta"))):
+        with pytest.raises(ValueError):
+            tfused.check_operands(a, b_, fmt, style)
+    with pytest.raises(TypeError):
+        tfused.check_operands(a.half(), b, tf.BF16, "fused")
+    with pytest.raises(ValueError):  # a must be contiguous along k
+        tfused.check_operands(a.T.contiguous().T, b, tf.BF16, "fused")
+    with pytest.raises(ValueError):  # b contiguous along neither dim
+        tfused.check_operands(a, torch.ones(512, 16)[::2, ::2], tf.BF16,
+                              "fused")
+    meta = torch.ones(8, 256, device="meta")
+    for call in (lambda: tfused.fused_qmm(meta, b.to("meta"), fmt=tf.BF16),
+                 lambda: fma_emu_matmul(meta, b.to("meta"), fmt=tf.BF16),
+                 lambda: quantize_nd(meta, fmt=tf.BF16)):
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            call()
+
+
+def test_build_is_lazy_and_keyed_by_source(monkeypatch, tmp_path):
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert sorted(_build.SOURCES) == sources
+    for flag in ("--use_fast_math", "-ftz=true"):
+        assert flag not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    before = _build._lib_path("qmm")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-g",))
+    assert _build._lib_path("qmm") != before
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        _build.check(9, "a launch")
+
+
+@pytest.mark.parametrize("arch", sorted(jbase.all_configs()))
+def test_config_data_matches_jax(arch):
+    want = jbase.get_config(arch)
+    got = tbase.get_config(arch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(got.reduced()) == \
+        dataclasses.asdict(want.reduced())
+    assert tbase.cells(arch) == jbase.cells(arch)

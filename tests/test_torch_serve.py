@@ -1,0 +1,237 @@
+"""The port's serving engine against its own greedy decoder and the JAX one.
+
+``BatchedServer`` (monolithic bucketed admission and chunked prefill, stop
+tokens, slot churn) is held against the port's ``greedy_decode``, and the
+port's ``greedy_decode`` against the JAX package's on weights exported with
+``params_from_jax``.  Greedy argmax can flip on a near-tie when two sides
+compute the logits in a different summation order (bucket padding changes
+the matmul shapes; the two packages use different BLAS), so a token
+mismatch counts as a fault only where the top-2 logit margin (the port's) at
+that step exceeds ``MARGIN_BOUND``; after a legitimate flip the streams are
+not compared further.  ``MARGIN_BOUND`` is ten times the 1e-4 logit
+tolerance that tests/test_torch_model.py holds the two packages to.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as jget_config
+from repro.models import LM as JLM
+from repro.serve import engine as jengine
+from repro_torch.configs.base import get_config
+from repro_torch.models import LM
+from repro_torch.models.convert import params_from_jax
+from repro_torch.serve import (BatchedServer, Request, RequestRejected,
+                               bucket_length, greedy_decode)
+
+MARGIN_BOUND = 1e-3
+
+
+class FakeClock:
+    """Deterministic ``clock`` for the engine's deadlines."""
+
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jcfg = dataclasses.replace(jget_config("tinyllama-1.1b").reduced(),
+                               dtype="float32")
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              dtype="float32")
+    jm = JLM(jcfg)
+    jp = jm.init(jax.random.PRNGKey(3))
+    tm = LM(cfg, device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    return jm, jp, tm, tp
+
+
+def _prompts(vocab, lens, seed=11):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int64) for n in lens]
+
+
+def _margins(model, params, prompt, n_new, max_len):
+    """The port's greedy stream with the top-2 logit margin of each step."""
+    tokens = torch.as_tensor(prompt[None])
+    last, cache = model.prefill(params, tokens, max_len=max_len)
+    toks, margins = [], []
+    for step in range(n_new):
+        top2 = torch.topk(last[0].float(), 2).values
+        margins.append(float(top2[0] - top2[1]))
+        toks.append(int(torch.argmax(last[0])))
+        if step + 1 < n_new:
+            logits, cache = model.decode_step(
+                params, cache, torch.tensor([[toks[-1]]]))
+            last = logits[:, -1]
+    return toks, margins
+
+
+def _assert_streams_agree(got, want, margins, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            assert margins[i] <= MARGIN_BOUND, (what, i, got, want, margins[i])
+            return  # a near-tie flip: the streams legitimately diverge here
+    assert len(got) == len(want), (what, got, want)
+
+
+# ------------------------------------------------- port vs the JAX package
+@pytest.fixture(scope="module")
+def jax_streams(pair):
+    """The JAX package's greedy streams of two prompts, 6 tokens each."""
+    jm, jp, _, _ = pair
+    prompts = _prompts(256, (5, 17))
+    return [(p, jengine.greedy_decode(jm, jp, p.astype(np.int32), 6,
+                                      max_len=32)) for p in prompts]
+
+
+@pytest.mark.parametrize("with_stop", [False, True], ids=["plain", "stop"])
+def test_greedy_decode_matches_jax(pair, jax_streams, with_stop):
+    jm, jp, tm, tp = pair
+    for prompt, want in jax_streams:
+        stops = (want[2],) if with_stop else ()
+        if with_stop:
+            want = jengine.greedy_decode(jm, jp, prompt.astype(np.int32), 6,
+                                         max_len=32, stop_tokens=stops)
+            assert len(want) <= 3
+        got = greedy_decode(tm, tp, prompt, 6, max_len=32, stop_tokens=stops)
+        _, margins = _margins(tm, tp, prompt, 6, 32)
+        _assert_streams_agree(got, want, margins, "port vs jax")
+
+
+def test_bucket_length_matches_jax():
+    for lo in (1, 8, 16):
+        assert [bucket_length(n, lo=lo) for n in range(1, 300)] == \
+            [jengine.bucket_length(n, lo=lo) for n in range(1, 300)]
+
+
+# ------------------------------------------- the server vs greedy_decode
+@pytest.fixture(scope="module")
+def dense():
+    """The reduced config in its own dtype (bfloat16), as the JAX serving
+    tests run it, with weights drawn from a torch.Generator."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = LM(cfg, device="cpu")
+    return cfg, model, model.init(seed=3)
+
+
+@pytest.mark.parametrize("chunk,budget", [(None, None), (4, None), (3, 5)],
+                         ids=["monolithic", "chunked", "chunked-budget"])
+def test_server_matches_greedy_decode(dense, chunk, budget):
+    """More requests than slots, prompts over three pad buckets, multi-token
+    dispatches and a stop token that ends one request early."""
+    cfg, model, params = dense
+    lens, new = (3, 9, 17, 6, 12), (6, 4, 8, 1, 5)
+    prompts = _prompts(cfg.vocab_size, lens)
+    plain = greedy_decode(model, params, prompts[2], new[2], max_len=32)
+    stops = (plain[3],)
+    refs = [greedy_decode(model, params, p, n, max_len=32, stop_tokens=stops)
+            for p, n in zip(prompts, new)]
+    assert any(len(r) < n for r, n in zip(refs, new))  # the stop fired
+    server = BatchedServer(model, params, slots=2, max_len=32,
+                           dispatch_tokens=3, stop_tokens=stops,
+                           prefill_chunk=chunk, prefill_token_budget=budget)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, new))]
+    for r in reqs:
+        server.submit(r)
+    finished = server.run(max_steps=200)
+    assert sorted(r.uid for r in finished) == list(range(len(reqs)))
+    for r, ref, p, n in zip(reqs, refs, prompts, new):
+        assert r.done and not r.expired
+        _, margins = _margins(model, params, p, n, 32)
+        _assert_streams_agree(r.output, ref, margins, f"request {r.uid}")
+    report = server.run_report()
+    assert report["tokens_decoded"] == sum(len(r.output) for r in reqs)
+    assert report["prefill_tokens"] == sum(lens)
+
+
+def test_server_deadlines_and_rejects(dense):
+    cfg, model, params = dense
+    clock = FakeClock(10.0)
+    server = BatchedServer(model, params, slots=2, max_len=16, clock=clock)
+    p = _prompts(cfg.vocab_size, (4,))[0]
+    late = Request(uid=0, prompt=p, max_new_tokens=4, deadline_s=5.0)
+    live = Request(uid=1, prompt=p, max_new_tokens=4, deadline_s=50.0)
+    server.submit(late)
+    server.submit(live)
+    done = server.run(max_steps=20)
+    assert {r.uid for r in done} == {0, 1}
+    assert late.expired and late.output == []  # expired in the queue
+    assert not live.expired and len(live.output) == 4
+    assert live.first_token_s == 10.0 and live.submitted_s == 10.0
+    for bad, code in ((Request(2, p, 0), "bad_max_tokens"),
+                      (Request(3, np.zeros((2, 2), np.int64), 2),
+                       "bad_prompt"),
+                      (Request(4, np.zeros(17, np.int64), 2),
+                       "prompt_too_long")):
+        with pytest.raises(RequestRejected, match=code):
+            server.submit(bad)
+        assert bad.rejected and bad in server.rejected
+
+
+def test_server_chip_policy_waits_for_its_slice(dense):
+    _, model, params = dense
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BatchedServer(model, params, slots=2, max_len=16, chip_policy=object())
+
+
+@pytest.mark.parametrize("chunk", [None, 4], ids=["monolithic", "chunked"])
+def test_trace_events_match_jax(pair, chunk):
+    """The engine's tracer hooks, recorded by the JAX package's ``Tracer``:
+    the same requests give each request the same spans and events as the
+    JAX ``BatchedServer``, and the port's trace passes the tracer's own
+    integrity check."""
+    from repro.telemetry.tracer import Tracer
+    jm, jp, tm, tp = pair
+    prompts = _prompts(256, (3, 9, 17, 6, 12))
+    new = (6, 4, 8, 1, 5)
+
+    def drive(server_cls, request_cls, model, params, dtype):
+        tracer = Tracer()
+        server = server_cls(model, params, slots=2, max_len=32,
+                            dispatch_tokens=3, clock=FakeClock(1.0),
+                            tracer=tracer, prefill_chunk=chunk)
+        for i, (p, n) in enumerate(zip(prompts, new)):
+            server.submit(request_cls(uid=i, prompt=p.astype(dtype),
+                                      max_new_tokens=n,
+                                      deadline_s=0.5 if i == 3 else None))
+        with pytest.raises(ValueError, match="prompt_too_long"):
+            server.submit(request_cls(uid=len(prompts),
+                                      prompt=np.zeros(40, dtype),
+                                      max_new_tokens=2))
+        server.run(max_steps=200)
+        return tracer
+
+    want = drive(jengine.BatchedServer, jengine.Request, jm, jp, np.int32)
+    got = drive(BatchedServer, Request, tm, tp, np.int64)
+    assert got.check_integrity() == []
+    for uid in range(len(prompts) + 1):  # one expires, the last is rejected
+        assert [(s.name, s.status, s.prefill_tokens, s.decode_tokens)
+                for s in got.spans_for(uid)] == \
+            [(s.name, s.status, s.prefill_tokens, s.decode_tokens)
+             for s in want.spans_for(uid)]
+        assert [(e[0], e[2].get("tokens")) for e in got.events_for(uid)] == \
+            [(e[0], e[2].get("tokens")) for e in want.events_for(uid)]
+
+
+def test_fleet_out_of_service_refuses_submits(dense):
+    from repro_torch.faults import UnitFault
+    cfg, model, params = dense
+    server = BatchedServer(model, params, slots=2, max_len=16)
+    p = _prompts(cfg.vocab_size, (4,))[0]
+    server.set_fleet_in_service("", False)
+    with pytest.raises(UnitFault):
+        server.submit(Request(uid=0, prompt=p, max_new_tokens=2))
+    with pytest.raises(KeyError):
+        server.set_fleet_in_service("sp_fma", True)
+    server.set_fleet_in_service("", True)
+    server.submit(Request(uid=1, prompt=p, max_new_tokens=2))
+    assert [len(r.output) for r in server.run()] == [2]

@@ -18,22 +18,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
      must catch (a cascade that skips the accumulator rounding, fp8 without
      operand rounding), and the emulated LM on a small config against the
      same LM on the CPU;
-  3. the main path at the full width of tinyllama-1.1b, launch counters set
-     to 0 just before: ``BatchedServer`` answers 8 requests (native bf16
+     K5 (ssm_scan_quantized) and K6 (ssm_scan) bitwise against theirs on
+     ragged shapes, every operand format, an out_fmt, f32 subnormals, +-inf
+     and NaN, with two controls the check must catch (a recurrence
+     contracted into fused multiply-adds, fp8 without operand rounding);
+  3. the dense path at the full width of tinyllama-1.1b, launch counters
+     set to 0 just before: ``BatchedServer`` answers 8 requests (native bf16
      matmuls; every token of every request, and of ``greedy_decode``'s
      stream, must have a logit within 4 * 2**-8 of max |logit| of the top
-     one in ``LM.apply`` on the same prefix), the LM's prefill + decode_scan run under four emulating
-     policies (every projection and the unembed through K1, 155 launches per
-     forward), ``quantize_tensor`` rounds the embedding table (K2) and
-     ``emulated_matmul(impl='pallas')`` runs a projection (K3);
-  4. each kernel's time at the model's shapes beside its bound, its plain
-     version's time and the library call's, and a profile of one decode step.
+     one in ``LM.apply`` on the same prefix), the LM's prefill + decode_scan
+     run under four emulating policies (every projection and the unembed
+     through K1, 155 launches per forward), ``quantize_tensor`` rounds the
+     embedding table (K2) and ``emulated_matmul(impl='pallas')`` runs a
+     projection (K3); then each of K1-K3's time at the model's shapes
+     beside its bound, its plain version's time and the library call's, and
+     a profile of one decode step;
+  4. the ssm path at the full width and depth of falcon-mamba-7b
+     (tinyllama freed first), launch counters set to 0 just before:
+     ``BatchedServer`` and ``greedy_decode`` as in 3 in bf16, every token
+     held to twice the model's own bf16 noise floor measured in the run
+     (``prefill`` against ``LM.apply`` at one position; at least 4 * 2**-8,
+     the floor itself under 2**-3, of max |logit|), then the same requests
+     on the same weights computed in float32, every token held to
+     4 * 2**-8; in both the server's and ``greedy_decode``'s streams agree
+     up to the first near tie of ``LM.apply``; layer 0's selective-scan
+     operands from a 2 x 256 prefill through K6 (``ssm_scan``, held to the
+     layer's own chunked scan on the same operands) and through K5
+     (``policy_ssm_scan`` under two emulating policies and none, held to
+     the plain version); one prefill under an emulating policy, whose only
+     routed matmul is the unembed (one K1 launch); then, outside the
+     counted window, K1 on that prefill's own unembed operands (M = 2 and
+     4, K = 4096, N = the padded vocabulary, the table's transpose read
+     through its strides) exactly equal to its plain version; K5's and
+     K6's times at the scan shape beside their bound, and a profile of one
+     decode step.
 
 Every line but the last two is a JSON record or the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line; the line before the last
 is the kernel table ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -51,6 +76,14 @@ PEAK_OPS_PER_S = {"fp8": 1979e12, "bf16": 989e12, "fp16": 989e12,
                   "tf32": 495e12, "f32": 67e12}
 # the emulated model path: 7 projections per layer + the unembed
 ARCH = "tinyllama-1.1b"
+SSM_ARCH = "falcon-mamba-7b"
+# layer 0's scan operands are taken from a prefill of this shape
+SSM_SCAN = dict(batch=2, prompt=256)
+# K6 on the layer's operands against the layer's own chunked scan: both
+# round every op to f32, but the chunked scan multiplies the decays of a
+# 64-token chunk in a doubling tree and reads out with einsum, in another
+# order than the kernel's sequential recurrence and left-to-right readout
+SCAN_VS_LAYER = 1e-5
 SERVE = dict(slots=4, max_len=256, requests=8, prompt_lo=16, prompt_hi=128,
              new_tokens=32)
 EMU = dict(batch=4, prompt=128, steps=16)
@@ -59,9 +92,16 @@ EMU = dict(batch=4, prompt=128, steps=16)
 # bits: a few roundings at the largest logit), since the server's bucketed prefill and decode steps run
 # bf16 products of other shapes than one full-sequence forward
 NEAR_TIE = 4 * 2.0 ** -8
+# falcon-mamba's 64 bf16 layers put prefill's and LM.apply's logits apart
+# by more than NEAR_TIE (two shapes of one computation), so its bf16 tokens
+# are held to twice that measured floor; a floor above this share of
+# max |logit| is no longer rounding noise and fails the run
+FLOOR_CAP = 32 * 2.0 ** -8
 LIBRARY_K1 = "torch.matmul(a.float(), b.float()), TF32 off"
 NO_LIBRARY_CALL = ("none: no single PyTorch call rounds partial sums on the "
                    "128-deep k-block schedule (cascade style)")
+NO_LIBRARY_SCAN = ("none: no single PyTorch call computes a selective scan "
+                   "(a linear recurrence with an N-wide readout)")
 
 
 def emit(record):
@@ -82,9 +122,19 @@ def check(cond, msg):
 # helpers
 # ---------------------------------------------------------------------------
 def tree_to(tree, dev):
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: tree_to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
 
 
 def mismatches(got, want):
@@ -317,10 +367,127 @@ def check_small_lm(dev):
           "vs CPU plain version", "worst_delta_over_limit": worst})
 
 
+def scan_operands(gen, shape, dev, specials=True):
+    """a in (0.5, 1), b and c normal; with ``specials``, f32 subnormals,
+    signed zeros, +-inf and NaN planted among them."""
+    B, S, D, N = shape
+    a = torch.rand(shape, generator=gen, device=dev) * 0.5 + 0.5
+    b = torch.randn(shape, generator=gen, device=dev)
+    c = torch.randn((B, S, N), generator=gen, device=dev)
+    if specials:
+        vals = torch.tensor([1e-40, -3e-39, 0.0, -0.0, float("inf"),
+                             -float("inf"), float("nan"), 240.0, 250.0],
+                            device=dev)
+        for t in (a, b, c):
+            flat = t.view(-1)
+            idx = torch.randint(0, flat.numel(), (64,), generator=gen,
+                                device=dev)
+            flat[idx] = vals[torch.arange(64, device=dev) % len(vals)]
+    return a, b, c
+
+
+def check_scan_kernels(dev):
+    """K6 and K5 bitwise against their plain versions, and two controls the
+    check must catch."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels.fused import (ssm_scan_quantized,
+                                           ssm_scan_quantized_ref)
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    # (shape, chunk, bd): falcon-mamba's N = 16, a ragged D (not a multiple
+    # of the 128-thread block), N = 8 (the reduced configs) and N = 5 (the
+    # kernel's variant for any N)
+    cases = [((2, 128, 8192 // 16, 16), 64, 256), ((3, 64, 200, 16), 32, 200),
+             ((2, 48, 136, 8), 16, 136), ((1, 32, 40, 5), 32, 40)]
+    fmts = (None, F.BF16, F.FP16, F.FP8_E4M3)
+    errs = {"ssm_scan": 0.0, "ssm_scan_quantized": 0.0}
+    n_checks = 0
+    for shape, chunk, bd in cases:
+        a, b, c = scan_operands(gen, shape, dev)
+        y6, h6 = ssm_scan(a, b, c, chunk=chunk, bd=bd)
+        want = ssm_scan_ref(a, b, c)
+        for got, ref in zip((y6, h6), want):
+            bad = mismatches(got, ref)
+            check(bad == 0, f"K6 {shape}: {bad} entries differ")
+            errs["ssm_scan"] = max(errs["ssm_scan"], max_abs_err(got, ref))
+        n_checks += 1
+        for fmt in fmts:
+            for out_fmt in (None, F.BF16):
+                got = ssm_scan_quantized(a, b, c, fmt=fmt, out_fmt=out_fmt,
+                                         chunk=chunk, bd=bd)
+                want = ssm_scan_quantized_ref(a, b, c, fmt=fmt,
+                                              out_fmt=out_fmt)
+                for g, w in zip(got, want):
+                    bad = mismatches(g, w)
+                    check(bad == 0, f"K5 {shape} fmt={fmt} out={out_fmt}: "
+                          f"{bad} entries differ")
+                    errs["ssm_scan_quantized"] = max(
+                        errs["ssm_scan_quantized"], max_abs_err(g, w))
+                if fmt is None and out_fmt is None:
+                    check(mismatches(got[0], y6) == 0
+                          and mismatches(got[1], h6) == 0,
+                          f"K5 with fmt=None differs from K6 at {shape}")
+                n_checks += 1
+        # the shape validation of both wrappers, on card tensors
+        for call in (lambda: ssm_scan(a, b, c, chunk=chunk + 1),
+                     lambda: ssm_scan_quantized(a, b, c, fmt=None,
+                                                chunk=chunk, bd=7)):
+            try:
+                call()
+                fail(f"a bad chunk/bd at {shape} was not refused")
+            except ValueError:
+                pass
+    torch.cuda.synchronize()
+
+    # controls at falcon-mamba's N without specials: the recurrence as fused
+    # multiply-adds (float64 product and sum, rounded once), and fp8 without
+    # operand rounding (the plain version at fmt=None)
+    a, b, c = scan_operands(gen, (2, 64, 1024, 16), dev, specials=False)
+    y_k5, _ = ssm_scan_quantized(a, b, c, fmt=F.FP8_E4M3, chunk=64)
+    y_k6, _ = ssm_scan(a, b, c)
+    h = torch.zeros_like(a[:, 0])
+    ys = []
+    for t in range(a.shape[1]):
+        h = (a[:, t].double() * h.double() + b[:, t].double()).float()
+        prod = h * c[:, t, None, :]
+        y = prod[..., 0]
+        for n in range(1, prod.shape[-1]):
+            y = y + prod[..., n]
+        ys.append(y)
+    controls = {
+        "recurrence_as_fma": mismatches(y_k6, torch.stack(ys, 1)),
+        "fp8_without_operand_rounding": mismatches(
+            y_k5, ssm_scan_quantized_ref(a, b, c, fmt=None)[0]),
+    }
+    for name, bad in controls.items():
+        check(bad > 0, f"control {name}: the check did not catch it")
+    emit({"phase": "check", "kernel": "ssm_scan+ssm_scan_quantized",
+          "checks": n_checks, "shapes": [list(c[0]) for c in cases],
+          "formats": [f.name if f else None for f in fmts],
+          "out_formats": [None, "bf16"],
+          "tolerance": "bitwise: every entry equal to the plain version's "
+                       "(NaN equal to NaN)",
+          "max_abs_err": errs, "controls_entries_differing": controls,
+          "control_entries": int(y_k6.numel())})
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
-def serve_full_width(model, params, rng):
+def serve_full_width(model, params, rng, noise_floor=False):
+    """``BatchedServer`` answers SERVE's requests (after a warm-up), then
+    every token of every request, and of ``greedy_decode``'s stream for the
+    same prompt, is held to one ``LM.apply`` over its whole stream: its
+    logit within a share of max |logit| of the top one.  The share is
+    NEAR_TIE, or with ``noise_floor`` the larger of NEAR_TIE and twice the
+    model's own rounding noise measured in this run: how far ``prefill``'s
+    last logits lie from ``LM.apply``'s at the same position (two shapes of
+    the same computation), itself held under FLOOR_CAP.  The server's and
+    ``greedy_decode``'s streams must also agree up to the first position
+    where ``LM.apply``'s top two logits lie within NEAR_TIE of max |logit|.
+    """
     from repro_torch.serve import BatchedServer, Request, greedy_decode
     s = SERVE
     lens = rng.integers(s["prompt_lo"], s["prompt_hi"] + 1, s["requests"])
@@ -350,47 +517,76 @@ def serve_full_width(model, params, rng):
     report = server.run_report()
     # every token of every request, and of greedy_decode's stream for the
     # same prompt, against one full-sequence forward on its own prefix
-    worst, exact, agree = 0.0, 0, []
+    held, agree, floor = [], [], 0.0
     for r, prompt in zip(reqs, prompts):
         ref = greedy_decode(model, params, prompt, s["new_tokens"],
                             max_len=s["max_len"])
-        agree.append(next((i for i, (x, y) in enumerate(zip(r.output, ref))
-                           if x != y), len(ref)))
+        split = next((i for i, (x, y) in enumerate(zip(r.output, ref))
+                      if x != y), len(ref))
+        agree.append(split)
         for what, stream in (("server", r.output), ("greedy_decode", ref)):
-            shortfall, limit, hits = stream_vs_apply(model, params, prompt,
-                                                     stream)
-            over = shortfall / limit
-            bad = int((over > 1).sum())
-            check(bad == 0, f"request {r.uid}: {bad} {what} tokens fall "
-                  f"short of LM.apply's top logit by more than {NEAR_TIE} "
-                  f"of max |logit| (worst {float(over.max())} of the limit)")
-            worst = max(worst, float(over.max()))
-            exact += hits
+            shortfall, scale, margin, first = stream_vs_apply(
+                model, params, prompt, stream)
+            held.append((r.uid, what, shortfall, scale))
+            if split < len(ref):  # the prefixes agree up to here
+                check(float(margin[split]) <= NEAR_TIE * float(scale[split]),
+                      f"request {r.uid}: the server and greedy_decode part "
+                      f"at token {split}, where LM.apply's top two logits "
+                      f"are {float(margin[split] / scale[split])} of max "
+                      f"|logit| apart (a near tie is within {NEAR_TIE})")
+        last, _ = model.prefill(params, torch.as_tensor(
+            prompt[None], device=model.device))
+        floor = max(floor, float((last[0].float() - first).abs().max()
+                                 / first.abs().max()))
+    share = NEAR_TIE
+    if noise_floor:
+        check(floor <= FLOOR_CAP, f"prefill and LM.apply differ by {floor} "
+              f"of max |logit|, more than rounding noise ({FLOOR_CAP})")
+        share = max(NEAR_TIE, 2 * floor)
+    worst, exact = 0.0, 0
+    for uid, what, shortfall, scale in held:
+        over = shortfall / (share * scale)
+        bad = int((over > 1).sum())
+        check(bad == 0, f"request {uid}: {bad} {what} tokens fall short of "
+              f"LM.apply's top logit by more than {share} of max |logit| "
+              f"(worst {float(over.max())} of the limit)")
+        worst = max(worst, float(over.max()))
+        exact += int((shortfall == 0).sum())
     n_tok = sum(len(r.output) for r in reqs)
-    emit({"phase": "serve", "arch": ARCH, "dtype": model.cfg.dtype,
-          "slots": s["slots"], "max_len": s["max_len"],
-          "requests": len(reqs), "prompt_lens": [int(n) for n in lens],
-          "new_tokens": s["new_tokens"], "wall_s": wall,
-          "tokens_per_s": n_tok / wall, "dispatches": report["dispatches"],
-          "host_syncs": report["host_syncs"],
-          "tokens_checked": 2 * n_tok, "tokens_at_apply_argmax": exact,
-          "worst_shortfall_over_limit": worst,
-          "server_greedy_agreeing_prefix": agree})
+    rec = {"phase": "serve", "arch": model.cfg.name,
+           "dtype": model.cfg.dtype, "slots": s["slots"],
+           "max_len": s["max_len"], "requests": len(reqs),
+           "prompt_lens": [int(n) for n in lens],
+           "new_tokens": s["new_tokens"], "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "dispatches": report["dispatches"],
+           "host_syncs": report["host_syncs"],
+           "tokens_checked": 2 * n_tok, "tokens_at_apply_argmax": exact,
+           "prefill_vs_apply_rel_logit_gap": floor,
+           "limit_share_of_max_logit": share,
+           "limit_from_noise_floor": noise_floor,
+           "worst_shortfall_over_limit": worst,
+           "tokens_within_near_tie": sum(
+               int((sh <= NEAR_TIE * sc).sum()) for _, _, sh, sc in held),
+           "server_greedy_agreeing_prefix": agree}
+    emit(rec)
+    return rec
 
 
 def stream_vs_apply(model, params, prompt, stream):
-    """For each token of ``stream`` generated after ``prompt``: how far its
-    logit in ``LM.apply`` on the prompt + the stream's earlier tokens falls
-    short of that position's top logit, the limit (NEAR_TIE of max |logit|
-    there), and how many tokens are the argmax outright."""
+    """For each token of ``stream`` generated after ``prompt``, from
+    ``LM.apply`` on the prompt + the stream's earlier tokens: how far its
+    logit falls short of that position's top logit, max |logit| there, the
+    gap between the top two logits there, and the logits at the prompt's
+    last position."""
     toks = np.concatenate([prompt, np.asarray(stream[:-1], np.int64)])
     logits, _ = model.apply(params, torch.as_tensor(toks[None],
                                                     device=model.device))
     pos = logits[0, len(prompt) - 1:].float()  # (len(stream), vocab)
     chosen = torch.as_tensor(stream, device=pos.device)[:, None]
-    shortfall = pos.max(-1).values - pos.gather(-1, chosen)[:, 0]
-    limit = NEAR_TIE * pos.abs().max(-1).values
-    return shortfall, limit, int((shortfall == 0).sum())
+    top2 = pos.topk(2, dim=-1).values
+    shortfall = top2[:, 0] - pos.gather(-1, chosen)[:, 0]
+    return (shortfall, pos.abs().max(-1).values, top2[:, 0] - top2[:, 1],
+            pos[0])
 
 
 def emulated_full_width(model, params, rng):
@@ -474,6 +670,167 @@ def user_calls_full_width(model, params):
     check(torch.equal(k3, k1), "impl='pallas' and impl='fused' differ")
     emit({"phase": "numerics_entry_points", "quantize_rel_err": rounded,
           "pallas_equals_fused": True, "shape": list(x.shape) + [w.shape[1]]})
+
+
+def serve_f32(cfg, params, dev):
+    """The served-token check of ``serve_full_width`` on the same model and
+    requests computed in float32 (the bf16 weights widened, exactly), held
+    to NEAR_TIE itself.  In bf16 the model's own rounding noise at this
+    depth is above NEAR_TIE (the bf16 run measures it), so here the
+    serving, state and chunking logic is all the tight limit can see."""
+    import dataclasses
+    from repro_torch.models import LM
+    model = LM(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    wide = tree_map(lambda t: t.float(), params)
+    rec = serve_full_width(model, wide, np.random.default_rng(SEED + 1))
+    del model, wide
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssm_layer0_operands(model, params, rng):
+    """Layer 0's selective-scan operands for a prefill of SSM_SCAN's shape,
+    through the functions ``mamba1_apply`` runs: the block's norm, the
+    in_proj, the causal conv and silu, then ``_mamba1_core``.  Returns
+    (tokens, a, bx, C)."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import embed_apply, rmsnorm
+    from repro_torch.models.model import _layer
+    cfg, dev = model.cfg, model.device
+    B, S = SSM_SCAN["batch"], SSM_SCAN["prompt"]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device=dev)
+    lp = _layer(params["layers"], 0)
+    p = lp["mamba"]
+    d_in = p["out_proj"].shape[0]
+    x = rmsnorm(lp["ln"], embed_apply(params["embed"], toks))
+    x_in, _ = torch.split(x @ p["in_proj"], [d_in, d_in], dim=-1)
+    xc, _ = ssm.causal_conv1d(x_in, p["conv_w"], p["conv_b"])
+    xc = ssm._silu_in(xc)
+    a, bx, cm = ssm._mamba1_core(p, xc, cfg.ssm_state)
+    return toks, a, bx, cm
+
+
+def ssm_kernels_full_width(model, params, rng):
+    """K6 and K5 on layer 0's full-width operands, through the entry points
+    a user calls, and one prefill under an emulating policy (K1 once)."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels.fused import fused_qmm, ssm_scan_quantized_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    from repro_torch.models import ssm
+    from repro_torch.models.numerics import EmulatedPolicy, policy_ssm_scan
+    cfg = model.cfg
+    toks, a, bx, cm = ssm_layer0_operands(model, params, rng)
+    B, S, D, N = a.shape
+    check(bool(torch.isfinite(a).all() and torch.isfinite(bx).all()
+               and torch.isfinite(cm).all()), "non-finite scan operands")
+    h0 = torch.zeros((B, D, N), dtype=torch.float32, device=a.device)
+
+    # K6 against the layer's own chunked scan on the same operands
+    y6, h6 = ssm_scan(a, bx, cm)
+
+    def readout(parts):
+        a_k, b_k, c_k = parts
+        return a_k, b_k, (lambda h_seq:
+                          torch.einsum("bsdn,bsn->bsd", h_seq, c_k))
+
+    y_layer, h_layer = ssm._chunked_ssm((a, bx, cm), h0, readout,
+                                        cfg.ssm_scan_chunk)
+    rel_y = float((y6 - y_layer).abs().max() / y_layer.abs().max())
+    rel_h = float((h6 - h_layer).abs().max() / h_layer.abs().max())
+    check(rel_y <= SCAN_VS_LAYER and rel_h <= SCAN_VS_LAYER,
+          f"K6 vs the layer's chunked scan: y {rel_y}, h {rel_h} of max| |, "
+          f"limit {SCAN_VS_LAYER}")
+    y6r, h6r = ssm_scan_ref(a, bx, cm)
+    check(mismatches(y6, y6r) == 0 and mismatches(h6, h6r) == 0,
+          "K6 differs from its plain version at full width")
+
+    # K5 through the policy entry point
+    k5 = {}
+    for label, pol in (("none", None),
+                       ("bf16/fused", EmulatedPolicy("bf16", "fused")),
+                       ("fp8_e4m3/fused", EmulatedPolicy("fp8_e4m3",
+                                                         "fused"))):
+        y5, h5 = policy_ssm_scan(a, bx, cm, pol)
+        fmt = F.REGISTRY[pol.fmt] if pol else None
+        w_y, w_h = ssm_scan_quantized_ref(a, bx, cm, fmt=fmt)
+        bad = mismatches(y5, w_y) + mismatches(h5, w_h)
+        check(bad == 0, f"K5 {label}: {bad} entries differ at full width")
+        if pol is None:
+            check(torch.equal(y5, y6) and torch.equal(h5, h6),
+                  "K5 with no policy differs from K6")
+        k5[label] = dict(
+            exact=True,
+            y_rel_gap_to_unrounded=float((y5 - y6).abs().max()
+                                         / y6.abs().max()))
+
+    # a prefill under an emulating policy: the unembed is its one K1 launch
+    c0 = fused_qmm.launches
+    pol = EmulatedPolicy("bf16", "fused")
+    last, _ = model.prefill(params, toks, policy=pol)
+    k1 = fused_qmm.launches - c0
+    check(k1 == 1, f"emulated {cfg.name} prefill: {k1} K1 launches, "
+          "expected 1 (the unembed)")
+    native, _ = model.prefill(params, toks)
+    check(bool(torch.isfinite(last).all()), "non-finite emulated logits")
+    emit({"phase": "ssm_kernels_full_width", "arch": cfg.name,
+          "layer": 0, "shape": [B, S, D, N],
+          "k6_vs_layer_chunked_scan": {"y_rel": rel_y, "h_rel": rel_h,
+                                       "limit": SCAN_VS_LAYER},
+          "k6_equals_plain": True, "k5_by_policy": k5,
+          "emulated_prefill_k1_launches": k1,
+          "emulated_prefill_rel_gap_to_native": float(
+              (last - native).abs().max() / native.abs().max())})
+    return (a, bx, cm), toks, last
+
+
+def check_ssm_unembed(model, params, toks, last):
+    """K1 at the shapes the ssm path gives it, against its plain version:
+    the unembed of falcon-mamba's final normed hidden states from the
+    2 x 256 prefill (M = 2, its last positions; M = 4, the last two of
+    each, as a 4-slot decode step gives it), K = d_model, N = the padded
+    vocabulary, b = the embedding table's transpose read through its
+    strides.  The emulated prefill's logits must be these operands'
+    product, so the operands are the path's own.  Runs outside the counted
+    window: these launches only compare."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels.fused import fused_qmm, fused_qmm_ref
+    from repro_torch.models.layers import embed_apply, rmsnorm, unembed_apply
+    from repro_torch.models.numerics import EmulatedPolicy
+    table = params["embed"]
+    x, _ = model._ssm_stack(params["layers"], embed_apply(table, toks),
+                            collect=True)  # as prefill runs it
+    x = rmsnorm(params["final_norm"], x)
+    again = unembed_apply(table, x[:, -1:], EmulatedPolicy("bf16", "fused"))
+    check(torch.equal(again[:, 0], last), "the emulated prefill's logits are "
+          "not the unembed of its final hidden states")
+    b = table.T
+    fmts = (F.BF16, F.FP16, F.FP8_E4M3)
+    styles = ("fused", "cascade", "cascade_fwd")
+    worst, n_checks = 0.0, 0
+    for a in (x[:, -1], x[:, -2:].reshape(-1, x.shape[-1])):
+        for fmt in fmts:
+            for style in styles:
+                for scaled in (False, True):
+                    got = fused_qmm(a, b, fmt=fmt, style=style, scaled=scaled)
+                    want = fused_qmm_ref(a, b, fmt=fmt, style=style,
+                                         scaled=scaled, bm=128, bn=128)
+                    bad = mismatches(got, want)
+                    check(bad == 0, f"K1 unembed {tuple(a.shape)} @ "
+                          f"{tuple(b.shape)} {fmt.name} {style} scaled="
+                          f"{scaled}: {bad} entries differ (max err "
+                          f"{max_abs_err(got, want)})")
+                    worst = max(worst, max_abs_err(got, want))
+                    n_checks += 1
+    emit({"phase": "check", "kernel": "fused_qmm", "arch": model.cfg.name,
+          "what": "the unembed on the prefill's final hidden states",
+          "shapes": [[2, b.shape[0], b.shape[1]], [4, b.shape[0], b.shape[1]]],
+          "b_strides": list(b.stride()), "checks": n_checks,
+          "formats": [f.name for f in fmts], "styles": list(styles),
+          "tolerance": "exact: every entry equal to the plain version's",
+          "max_abs_err": worst, "prefill_logits_are_these_operands": True})
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -587,6 +944,64 @@ def time_kernels(dev, cfg, launches, errs):
     ]
 
 
+def time_scan_kernels(dev, operands, launches, errs):
+    """K6 and K5 at layer 0's full-width shape: median of 10 launches with
+    the L2 flushed, beside the bound, the plain version's time (3 runs)."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels.fused import (ssm_scan_quantized,
+                                           ssm_scan_quantized_ref)
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    a, bx, cm = operands
+    B, S, D, N = a.shape
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    k6 = dict(ms=time_ms(lambda: ssm_scan(a, bx, cm), flush),
+              plain_ms=time_ms(lambda: ssm_scan_ref(a, bx, cm), flush,
+                               reps=3))
+    k5 = {}
+    for fmt in (None, F.BF16, F.FP8_E4M3):
+        k5[fmt.name if fmt else "none"] = time_ms(
+            lambda: ssm_scan_quantized(a, bx, cm, fmt=fmt), flush)
+    k5_plain = time_ms(lambda: ssm_scan_quantized_ref(a, bx, cm, fmt=F.BF16),
+                       flush, reps=3)
+    # each input read once, each output written once, f32
+    elems = B * S * D * N
+    byts = 4 * (2 * elems + B * S * N + B * S * D + B * D * N)
+    t_bytes = 1e3 * byts / HBM_BYTES_PER_S
+    # 4 flops per (b, s, d, n): the recurrence's multiply and add, the
+    # readout's; rounding an operand takes some 10 f32 operations (two
+    # divisions, rint, two multiplications, compares) for each of a, b, c
+    t_ops6 = 1e3 * 4 * elems / PEAK_OPS_PER_S["f32"]
+    t_ops5 = 1e3 * (4 * elems + 10 * (2 * elems + B * S * N)) \
+        / PEAK_OPS_PER_S["f32"]
+    b6, by6 = bound_of(t_bytes, t_ops6)
+    b5, by5 = bound_of(t_bytes, t_ops5)
+    emit({"phase": "times", "kernel": "ssm_scan+ssm_scan_quantized",
+          "shape": [B, S, D, N], "unit": "ms per launch, median of 10, L2 "
+          "flushed", "bytes": byts, "bytes_ms": t_bytes,
+          "ssm_scan": {**k6, "bound_ms": b6, "bound_by": by6,
+                       "achieved_bytes_per_s": byts / (k6["ms"] * 1e-3)},
+          "ssm_scan_quantized_ms_by_fmt": k5,
+          "ssm_scan_quantized_plain_ms_bf16": k5_plain,
+          "ssm_scan_quantized_bound_ms": b5})
+    work = f"layer 0 of {SSM_ARCH}, a and b {[B, S, D, N]} f32"
+    return [
+        dict(name="ssm_scan_quantized", route="cuda",
+             source="src/repro_torch/csrc/ssm_scan.cu",
+             replaces="src/repro/kernels/fused.py:594",
+             launches=launches["ssm_scan_quantized"],
+             max_abs_err=errs["ssm_scan_quantized"], ms=k5["bf16"],
+             plain_ms=k5_plain, bound_ms=b5, bound_by=by5, library_ms=None,
+             library_call=NO_LIBRARY_SCAN, work=work + ", fmt bf16"),
+        dict(name="ssm_scan", route="cuda",
+             source="src/repro_torch/csrc/ssm_scan.cu",
+             replaces="src/repro/kernels/ssm_scan.py:59",
+             launches=launches["ssm_scan"], max_abs_err=errs["ssm_scan"],
+             ms=k6["ms"], plain_ms=k6["plain_ms"], bound_ms=b6,
+             bound_by=by6, library_ms=None, library_call=NO_LIBRARY_SCAN,
+             work=work),
+    ]
+
+
 def profile_decode(model, params, rng):
     """Device time by kernel over one decode step at batch 4, native and
     under EmulatedPolicy(bf16, fused); the idle share is 1 - device time /
@@ -622,8 +1037,10 @@ def profile_decode(model, params, rng):
             idle_share=1 - total_us / 1e3 / (wall * 1e3) if total_us
             else "not measured",
             top_kernels_ms=[[k[:80], v / 1e3] for k, v in top])
-    emit({"phase": "profile", "what": "one decode_step, batch 4, cache 64",
+    emit({"phase": "profile", "arch": cfg.name,
+          "what": "one decode_step, batch 4, after a 64-token prefill",
           **result})
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -638,37 +1055,83 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.fma_emu import fma_emu_matmul
-    from repro_torch.kernels.fused import fused_qmm
+    from repro_torch.kernels.fused import fused_qmm, ssm_scan_quantized
     from repro_torch.kernels.quantize_kernel import quantize_nd
+    from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.models import LM
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
     smi = card_and_build()
     errs = check_kernels(dev)
+    errs.update(check_scan_kernels(dev))
     check_small_lm(dev)
 
+    wrappers = {"fused_qmm": fused_qmm, "quantize_nd": quantize_nd,
+                "fma_emu_matmul": fma_emu_matmul,
+                "ssm_scan_quantized": ssm_scan_quantized,
+                "ssm_scan": ssm_scan}
+
+    def drive(path, kernels_of_path, *steps):
+        """The path's steps with every launch count set to 0 just before
+        and read just after; each kernel of the path must have launched."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = [step() for step in steps]
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        emit({"phase": "launches", "path": path, "counts": counts})
+        for name in kernels_of_path:
+            check(counts[name] > 0, f"{name} was not launched on the "
+                  f"{path} path")
+        return counts, out
+
+    # the dense path: tinyllama-1.1b
     cfg = get_config(ARCH)
     model = LM(cfg, device=dev)
     params = model.init(seed=SEED)
     rng = np.random.default_rng(SEED)
-    wrappers = {"fused_qmm": fused_qmm, "quantize_nd": quantize_nd,
-                "fma_emu_matmul": fma_emu_matmul}
-    for fn in wrappers.values():
-        fn.launches = 0
-    serve_full_width(model, params, rng)
-    emulated_full_width(model, params, rng)
-    user_calls_full_width(model, params)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    emit({"phase": "launches", "main_path": launches})
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
-
-    kernels = time_kernels(dev, cfg, launches, errs)
+    dense, _ = drive(ARCH, ("fused_qmm", "quantize_nd", "fma_emu_matmul"),
+                     lambda: serve_full_width(model, params, rng),
+                     lambda: emulated_full_width(model, params, rng),
+                     lambda: user_calls_full_width(model, params))
+    kernels = time_kernels(dev, cfg, dense, errs)
     profile_decode(model, params, rng)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the ssm path: falcon-mamba-7b
+    scfg = get_config(SSM_ARCH)
+    smodel = LM(scfg, device=dev)
+    t0 = time.perf_counter()
+    sparams = smodel.init(seed=SEED)
+    torch.cuda.synchronize()
+    emit({"phase": "init", "arch": SSM_ARCH, "seconds":
+          time.perf_counter() - t0, "parameters": sum(
+              t.numel() for t in tree_leaves(sparams)),
+          "device_bytes": torch.cuda.memory_allocated()})
+    ssm_counts, (_, _, (operands, toks, last)) = drive(
+        SSM_ARCH, ("ssm_scan", "ssm_scan_quantized", "fused_qmm"),
+        lambda: serve_full_width(smodel, sparams,
+                                 np.random.default_rng(SEED + 1),
+                                 noise_floor=True),
+        lambda: serve_f32(scfg, sparams, dev),
+        lambda: ssm_kernels_full_width(smodel, sparams, rng))
+    errs["fused_qmm"] = max(errs["fused_qmm"],
+                            check_ssm_unembed(smodel, sparams, toks, last))
+    kernels += time_scan_kernels(dev, operands, ssm_counts, errs)
+    del operands
+    profile_decode(smodel, sparams, rng)
+    for row in kernels:  # launches on both paths of this run
+        row["max_abs_err"] = errs[row["name"]]
+        by_path = {ARCH: dense[row["name"]], SSM_ARCH: ssm_counts[row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quantize", "qmm")
+SOURCES = ("quantize", "qmm", "ssm_scan")
 # no --use_fast_math and no -ftz=true: the rounding functions need IEEE
 # division and subnormals
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

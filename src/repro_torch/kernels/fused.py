@@ -1,16 +1,22 @@
-"""K1: fused quantize + matmul + dequant on the card (``csrc/qmm.cu``).
+"""K1: fused quantize + matmul + dequant on the card (``csrc/qmm.cu``), and
+K5: the selective scan with format-rounded operands (``csrc/ssm_scan.cu``).
 
-Counterpart of the ``fused_qmm`` part of ``repro.kernels.fused``.  The TPU
-kernel ran the grid (B, M/128, N/128, K/128) with the k axis sequential into
-a VMEM accumulator; the CUDA kernel gives each thread block one output tile
-and loops over the 128-deep k blocks inside it.  ``fused_qmm_ref`` is the
-plain version: a replay of the same tile schedule in PyTorch, which the CPU
-path runs and the card check compares against.
+Counterpart of the ``fused_qmm`` and ``ssm_scan_quantized`` parts of
+``repro.kernels.fused`` (``fused_flash_attention`` arrives with the
+attention slice).
 
+K1: the TPU kernel ran the grid (B, M/128, N/128, K/128) with the k axis
+sequential into a VMEM accumulator; the CUDA kernel gives each thread block
+one output tile and loops over the 128-deep k blocks inside it.
+``fused_qmm_ref`` is the plain version: a replay of the same tile schedule
+in PyTorch, which the CPU path runs and the card check compares against.
 Power-of-two scaling (``scaled=True``) is exact: the scale is built from
 exponent bits of the tile's largest magnitude, so rescaling adds no rounding
 of its own and a scaled product equals the unscaled one wherever the
 format's range suffices.
+
+K5 shares K6's device code (``kernels/ssm_scan.py``) with the operands
+rounded as they are read; ``ssm_scan_quantized_ref`` is its plain version.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.core.formats import (FloatFormat, _pow2_from_exp,
                                       _unbiased_exp_f32, quantize)
 from repro_torch.kernels import _build
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels.ref import STYLES, TILE, accumulate
 
 _STYLE_CODE = {"fused": 0, "cascade": 1, "cascade_fwd": 2}
@@ -164,3 +171,52 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
 
 
 fused_qmm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: the selective scan with format-rounded operands (csrc/ssm_scan.cu)
+# ---------------------------------------------------------------------------
+def ssm_scan_quantized_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                           *, fmt: FloatFormat | None,
+                           out_fmt: FloatFormat | None = None):
+    """Plain version of ``ssm_scan_quantized``: a, b and c rounded to
+    ``fmt`` (skipped for ``None``), then the sequential recurrence in an f32
+    state and the readout summed over n left to right, y rounded to
+    ``out_fmt`` if given.  The rounding is elementwise, so it is applied to
+    whole tensors, with the same result as per token."""
+    _ssm.check_shapes(a, b, c)
+    a, b, c = (t.to(torch.float32) for t in (a, b, c))
+    if fmt is not None:
+        a, b, c = quantize(a, fmt), quantize(b, fmt), quantize(c, fmt)
+    return _ssm.scan_ref(a, b, c, out_fmt)
+
+
+def ssm_scan_quantized(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+                       fmt: FloatFormat | None,
+                       out_fmt: FloatFormat | None = None, chunk: int = 64,
+                       bd: int = 256):
+    """Quantized selective scan: a, b (B, S, D, N), c (B, S, N) ->
+    (y (B, S, D), h_last (B, D, N)), f32.
+
+    The operands are rounded to ``fmt`` as they are read; the state stays
+    in f32 (the unit's extended accumulator) and ``out_fmt`` optionally
+    rounds the readout.  S % chunk == 0 and D % bd == 0 are required (bd
+    clamped to D first), as in the JAX package.  CPU tensors take
+    ``ssm_scan_quantized_ref`` after those checks; a CUDA tensor launches
+    the kernel and counts the launch in ``ssm_scan_quantized.launches``."""
+    _ssm.check_shapes(a, b, c)
+    B, S, D, N = a.shape
+    bd = min(bd, D)
+    if S % chunk or D % bd:
+        raise ValueError(f"S={S} % chunk={chunk} or D={D} % bd={bd} != 0")
+    if a.device.type == "cpu":
+        return ssm_scan_quantized_ref(a, b, c, fmt=fmt, out_fmt=out_fmt)
+    if a.device.type != "cuda":
+        raise ValueError(f"ssm_scan_quantized runs on cpu or cuda, got "
+                         f"{a.device}")
+    out = _ssm.launch(a, b, c, fmt, out_fmt)
+    ssm_scan_quantized.launches += 1
+    return out
+
+
+ssm_scan_quantized.launches = 0

@@ -3,6 +3,10 @@
 The JAX ``LM.init`` draws with the JAX PRNG, which PyTorch cannot replay, so
 parity tests export the reference's parameter tree (as numpy arrays) and
 load it here: both packages then compute from the same weights.
+
+Each leaf takes the dtype the reference's ``init`` gives it: ``cfg.dtype``
+for most, float32 for the ssm family's ``dt_bias``, ``A_log`` and ``D``
+(float32 even in a bfloat16 model).
 """
 from __future__ import annotations
 
@@ -25,8 +29,26 @@ def _to_tensor(arr, dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _ssm_layers(cfg: ArchConfig) -> Dict:
+    d, L, N = cfg.d_model, cfg.n_layers, cfg.ssm_state
+    d_in = cfg.ssm_expand * d
+    dt_rank = max(d // 16, 1)
+    f32 = torch.float32
+    return {"ln": {"scale": (L, d)}, "mamba": {
+        "in_proj": (L, d, 2 * d_in), "conv_w": (L, cfg.ssm_conv, d_in),
+        "conv_b": (L, d_in), "x_proj": (L, d_in, dt_rank + 2 * N),
+        "dt_proj": (L, dt_rank, d_in), "dt_bias": ((L, d_in), f32),
+        "A_log": ((L, d_in, N), f32), "D": ((L, d_in), f32),
+        "out_proj": (L, d_in, d)}}
+
+
 def _expected_shapes(cfg: ArchConfig) -> Dict:
+    """The tree's keys with each leaf's shape, or (shape, dtype) where the
+    leaf's dtype is not ``cfg.dtype``."""
     d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    if cfg.family == "ssm":
+        return {"embed": (_pad_vocab(cfg.vocab_size), d),
+                "final_norm": {"scale": (d,)}, "layers": _ssm_layers(cfg)}
     layers = {
         "ln1": {"scale": (L, d)}, "ln2": {"scale": (L, d)},
         "wq": (L, d, cfg.n_heads * hd), "wk": (L, d, cfg.n_kv_heads * hd),
@@ -50,6 +72,8 @@ def _convert(tree, shapes, dtype, device, path=""):
                              f"got {got}")
         return {k: _convert(tree[k], shapes[k], dtype, device, f"{path}.{k}")
                 for k in shapes}
+    if isinstance(shapes[-1], torch.dtype):
+        shapes, dtype = shapes
     if tuple(np.shape(tree)) != shapes:
         raise ValueError(f"params{path}: expected shape {shapes}, got "
                          f"{tuple(np.shape(tree))}")
@@ -58,9 +82,9 @@ def _convert(tree, shapes, dtype, device, path=""):
 
 def params_from_jax(tree_of_numpy: Dict, cfg: ArchConfig,
                     device=None) -> Dict:
-    """The JAX dense ``LM`` parameter tree (stacked ``layers``, ``embed``,
-    ``final_norm``; leaves as numpy arrays) as the port's parameters, in
-    ``cfg.dtype`` on ``device`` (default CUDA).  Keys and shapes are
-    checked against ``cfg``."""
+    """The JAX ``LM`` parameter tree of the dense or ssm family (stacked
+    ``layers``, ``embed``, ``final_norm``; leaves as numpy arrays) as the
+    port's parameters on ``device`` (default CUDA), each leaf in the dtype
+    the reference gives it.  Keys and shapes are checked against ``cfg``."""
     return _convert(tree_of_numpy, _expected_shapes(cfg), _DTYPES[cfg.dtype],
                     resolve_device(device))

@@ -19,7 +19,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
     scale = (d_in ** -0.5) if scale is None else scale
     w = torch.randn(tuple(lead) + (d_in, d_out), generator=gen,
                     device=gen.device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)  # in place: one f32 copy at a time
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype):

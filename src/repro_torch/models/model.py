@@ -1,15 +1,19 @@
-"""Model assembly: the dense decoder LM (counterpart of
-``repro.models.model``).
+"""Model assembly: the decoder LM (counterpart of ``repro.models.model``).
+
+Families ported so far:
+  dense : L x [GQA attention + MLP]
+  ssm   : L x [Mamba-1]    (attention-free; falcon-mamba)
 
 The JAX package stacks each layer's parameters along a leading axis and
 runs the stack with ``lax.scan``; the port keeps the same parameter tree
 (so ``models.convert.params_from_jax`` is a plain copy) and loops over the
-layers.  Decode is a single-token step against a KV cache that the port
-updates in place (the JAX function returns a new one); the returned
-``DecodeCache`` shares the caller's storage.
+layers.  Decode is a single-token step against a cache (KV for dense,
+conv + state carries for ssm) that the port updates in place (the JAX
+function returns a new one); the returned ``DecodeCache`` shares the
+caller's storage.
 
-Only the dense family is ported in this slice; the others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The other families raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -22,13 +26,14 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import chunk_attention, decode_attention
 from repro_torch.models.flash_vjp import flash_attention_trainable
+from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_rope, dense_init, embed_apply,
                                        embed_init, mlp_apply, mlp_init,
                                        rmsnorm, rmsnorm_init, unembed_apply)
 from repro_torch.models.numerics import matmul
 
-#: families not in this slice -> the ROADMAP.md queue-1 item that ports them
-_LATER_FAMILIES = {"ssm": 9, "hybrid": 9, "moe": 10, "vlm": 13, "audio": 13}
+#: families not ported yet -> the ROADMAP.md queue-1 item that ports them
+_LATER_FAMILIES = {"hybrid": 14, "moe": 10, "vlm": 13, "audio": 13}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
 
@@ -156,11 +161,49 @@ def _chunk_attn_block(p, x, k_cache, v_cache, offsets, chunk_lens, positions,
 
 
 # ---------------------------------------------------------------------------
+# SSM block (norm + mamba)
+# ---------------------------------------------------------------------------
+def ssm_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, n: int):
+    """``n`` stacked blocks' parameters (leading axis = layer)."""
+    d, lead = cfg.d_model, (n,)
+    p = {"ln": rmsnorm_init(d, dtype, gen.device, lead=lead)}
+    if cfg.ssm_version == 1:
+        p["mamba"] = ssm.mamba1_init(gen, d, d_state=cfg.ssm_state,
+                                     expand=cfg.ssm_expand, conv=cfg.ssm_conv,
+                                     dtype=dtype, lead=lead)
+    else:
+        p["mamba"] = ssm.mamba2_init(gen, d, d_state=cfg.ssm_state,
+                                     expand=cfg.ssm_expand, conv=cfg.ssm_conv,
+                                     head_dim=cfg.ssm_head_dim, dtype=dtype,
+                                     lead=lead)
+    return p
+
+
+def ssm_block_apply(p, x, cfg: ArchConfig, state=None,
+                    return_state: bool = False):
+    """x + mamba(norm(x)); with ``return_state`` also the block's
+    (conv carry, h) after the sequence."""
+    h = rmsnorm(p["ln"], x)
+    kw = dict(state=state, return_state=return_state,
+              chunk=cfg.ssm_scan_chunk)
+    if cfg.ssm_version == 1:
+        out = ssm.mamba1_apply(p["mamba"], h, d_state=cfg.ssm_state, **kw)
+    else:
+        out = ssm.mamba2_apply(p["mamba"], h, d_state=cfg.ssm_state,
+                               head_dim=cfg.ssm_head_dim, **kw)
+    if return_state:
+        y, new_state = out
+        return x + y, new_state
+    return x + out
+
+
+# ---------------------------------------------------------------------------
 # The LM
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class DecodeCache:
-    """Decode state: ``data`` {"k", "v"} of shape (L, B, Smax, Hkv, D) and
+    """Decode state: ``data`` {"k", "v"} of shape (L, B, Smax, Hkv, D)
+    (dense) or {"conv" (L, B, K-1, C), "h" (L, B, d_in, N)} (ssm), and
     ``length``, a 0-d (single sequence) or (B,) per-slot int64 tensor."""
 
     data: Dict
@@ -175,7 +218,7 @@ class LM:
             raise NotImplementedError(
                 f"the {cfg.family} family is not ported yet: ROADMAP.md "
                 f"queue 1 item {_LATER_FAMILIES[cfg.family]}")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise ValueError(cfg.family)
         if cfg.window:
             raise NotImplementedError(
@@ -193,41 +236,78 @@ class LM:
         cfg, dtype = self.cfg, self.dtype
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        block_init = ssm_block_init if cfg.family == "ssm" \
+            else attn_block_init
         return {
             "embed": embed_init(gen, self.vocab_padded, cfg.d_model, dtype),
             "final_norm": rmsnorm_init(cfg.d_model, dtype, self.device),
-            "layers": attn_block_init(gen, cfg, dtype, cfg.n_layers),
+            "layers": block_init(gen, cfg, dtype, cfg.n_layers),
         }
 
     # ------------------------------------------------------- forward -------
     def apply(self, params, tokens, *, policy=None, collect_kv: bool = False,
-              logits_last_only: bool = False, last_index=None):
+              collect_states: bool = False, logits_last_only: bool = False,
+              last_index=None):
         """Full-sequence forward. Returns (logits, aux) or, with
-        ``collect_kv``, (logits, aux, (k, v)) with k, v of shape
-        (L, B, S, Hkv, D) in the cache dtype.
+        ``collect_kv`` (dense), (logits, aux, (k, v)) with k, v of shape
+        (L, B, S, Hkv, D) in the cache dtype, or with ``collect_states``
+        (ssm), (logits, aux, (conv, h)): each layer's decode state after the
+        sequence, stacked.  The JAX package's prefill runs the stack a
+        second time for the states (``_prefill_ssm_states``); the port takes
+        them from this pass, whose numbers are the same.
 
         logits_last_only: unembed only the final position; last_index: (B,)
-        per-sample position to unembed instead (bucket-padded prefill)."""
+        per-sample position to unembed instead (bucket-padded prefill).
+        Under a policy, only the projections and the unembed are emulated:
+        the ssm family's only policy-routed matmul is the unembed."""
         cfg = self.cfg
         x = embed_apply(params["embed"], tokens)
         B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None, :]
-        ks, vs = [], []
-        for i in range(cfg.n_layers):
-            x, (k, v) = attn_block_apply(_layer(params["layers"], i), x,
-                                         positions, cfg, policy=policy)
+        collected = None
+        if cfg.family == "ssm":
+            x, states = self._ssm_stack(params["layers"], x,
+                                        collect=collect_states)
+            if collect_states:
+                collected = states
+        else:
+            positions = torch.arange(S, device=x.device)[None, :]
+            ks, vs = [], []
+            for i in range(cfg.n_layers):
+                x, (k, v) = attn_block_apply(_layer(params["layers"], i), x,
+                                             positions, cfg, policy=policy)
+                if collect_kv:
+                    ks.append(k.to(self.cache_dtype))
+                    vs.append(v.to(self.cache_dtype))
             if collect_kv:
-                ks.append(k.to(self.cache_dtype))
-                vs.append(v.to(self.cache_dtype))
+                collected = (torch.stack(ks), torch.stack(vs))
         x = rmsnorm(params["final_norm"], x)
         if last_index is not None:
             x = x[torch.arange(B, device=x.device), last_index][:, None]
         elif logits_last_only:
             x = x[:, -1:]
         logits = unembed_apply(params["embed"], x, policy)
-        if collect_kv:
-            return logits, 0.0, (torch.stack(ks), torch.stack(vs))
+        if collected is not None:
+            return logits, 0.0, collected
         return logits, 0.0
+
+    def _ssm_stack(self, layers, x, states=None, collect: bool = False):
+        """The ssm layers over x.  ``states``: per-layer (conv, h) stacked
+        on a leading layer axis to resume from (None: zeros).  Returns
+        (x, (conv, h) stacked) when collecting or resuming, else (x, None).
+        """
+        convs, hs = [], []
+        keep = collect or states is not None
+        for i in range(self.cfg.n_layers):
+            st = None if states is None else (states[0][i], states[1][i])
+            out = ssm_block_apply(_layer(layers, i), x, self.cfg, state=st,
+                                  return_state=keep)
+            if keep:
+                x, (conv, h) = out
+                convs.append(conv)
+                hs.append(h)
+            else:
+                x = out
+        return x, ((torch.stack(convs), torch.stack(hs)) if keep else None)
 
     # -------------------------------------------------------- caches -------
     @property
@@ -235,12 +315,21 @@ class LM:
         return _DTYPES[self.cfg.kv_cache_dtype or self.cfg.dtype]
 
     def init_cache(self, batch: int, max_len: int) -> DecodeCache:
-        cfg = self.cfg
-        shp = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        data = {name: torch.zeros(shp, dtype=self.cache_dtype,
-                                  device=self.device) for name in ("k", "v")}
+        """Zeroed decode state for ``batch`` lanes: KV of ``max_len``
+        positions (dense) or conv and h carries (ssm, whose state does not
+        grow with the length)."""
+        cfg, L, dev = self.cfg, self.cfg.n_layers, self.device
+        if cfg.family == "ssm":
+            (conv_s, conv_t), (h_s, h_t) = ssm.mamba_state_shapes(cfg, batch)
+            data = {"conv": torch.zeros((L,) + conv_s, dtype=conv_t,
+                                        device=dev),
+                    "h": torch.zeros((L,) + h_s, dtype=h_t, device=dev)}
+        else:
+            shp = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            data = {name: torch.zeros(shp, dtype=self.cache_dtype,
+                                      device=dev) for name in ("k", "v")}
         return DecodeCache(data, torch.zeros((), dtype=torch.int64,
-                                             device=self.device))
+                                             device=dev))
 
     def cache_at_length(self, cache: DecodeCache, length) -> DecodeCache:
         return DecodeCache(cache.data, torch.as_tensor(
@@ -257,10 +346,22 @@ class LM:
         B = x.shape[0]
         clen = cache.length
         lens = clen.expand(B) if clen.dim() == 0 else clen
+        data = cache.data
         for i in range(self.cfg.n_layers):
-            x = attn_block_decode(_layer(params["layers"], i), x,
-                                  cache.data["k"][i], cache.data["v"][i],
-                                  lens, self.cfg, policy=policy,
+            lp = _layer(params["layers"], i)
+            if self.cfg.family == "ssm":
+                x, new = ssm_block_apply(lp, x, self.cfg, return_state=True,
+                                         state=(data["conv"][i],
+                                                data["h"][i]))
+                for old, fresh in zip((data["conv"][i], data["h"][i]), new):
+                    if write_mask is not None:
+                        keep = write_mask.reshape((B,) + (1,) *
+                                                  (fresh.dim() - 1))
+                        fresh = torch.where(keep, fresh, old)
+                    old.copy_(fresh)
+                continue
+            x = attn_block_decode(lp, x, data["k"][i], data["v"][i], lens,
+                                  self.cfg, policy=policy,
                                   write_mask=write_mask)
         x = rmsnorm(params["final_norm"], x)
         logits = unembed_apply(params["embed"], x, policy)
@@ -271,13 +372,17 @@ class LM:
                 policy=None):
         """Run the full prompt, build a decode cache. Returns
         (last_logits (B,V), cache)."""
-        logits, _, (k, v) = self.apply(params, tokens, policy=policy,
-                                       collect_kv=True,
-                                       logits_last_only=True)
+        ssm_family = self.cfg.family == "ssm"
+        logits, _, collected = self.apply(
+            params, tokens, policy=policy, collect_kv=not ssm_family,
+            collect_states=ssm_family, logits_last_only=True)
         B, S = tokens.shape
-        cache = self.init_cache(B, max_len or S)
-        cache.data["k"][:, :, :S] = k
-        cache.data["v"][:, :, :S] = v
+        if ssm_family:  # the state does not grow with max_len
+            cache = DecodeCache(dict(zip(("conv", "h"), collected)), None)
+        else:
+            cache = self.init_cache(B, max_len or S)
+            cache.data["k"][:, :, :S] = collected[0]
+            cache.data["v"][:, :, :S] = collected[1]
         return logits[:, -1], self.cache_at_length(cache, S)
 
     def prefill_batched(self, params, tokens, true_lens, *, policy=None):
@@ -285,14 +390,20 @@ class LM:
 
         tokens: (M, Lb) right-padded to one bucket length; true_lens: (M,).
         Returns ``(last_logits (M, V), (k, v), None)`` with k, v of shape
-        (L, M, Lb, Hkv, D).  Right-padding is exact for causal attention: a
-        pad never enters a valid position's context."""
+        (L, M, Lb, Hkv, D), or for the ssm family ``(last_logits, None,
+        (conv, h))``.  Right-padding is exact for causal attention: a pad
+        never enters a valid position's context.  SSM state carries run
+        through pads, so that family must be called with exact lengths (all
+        ``true_lens == Lb``)."""
         true_lens = torch.as_tensor(true_lens, dtype=torch.int64,
                                     device=self.device)
-        logits, _, kv = self.apply(params, tokens, policy=policy,
-                                   collect_kv=True,
-                                   last_index=true_lens - 1)
-        return logits[:, 0], kv, None
+        ssm_family = self.cfg.family == "ssm"
+        logits, _, collected = self.apply(
+            params, tokens, policy=policy, collect_kv=not ssm_family,
+            collect_states=ssm_family, last_index=true_lens - 1)
+        if ssm_family:
+            return logits[:, 0], None, collected
+        return logits[:, 0], collected, None
 
     def prefill_chunk(self, params, cache: DecodeCache, tokens, offsets,
                       chunk_lens, slot_ids, *, policy=None):
@@ -304,7 +415,14 @@ class LM:
         (M,) cache lanes.  Returns ``(last_logits (M, V), cache)`` with the
         chunk's KV written at the offsets and the lane lengths advanced to
         ``offsets + chunk_lens``.  History is read back from the cache, so
-        the cache dtype must equal the compute dtype."""
+        the cache dtype must equal the compute dtype.
+
+        The ssm family resumes each lane from its conv/h carries (a lane
+        with offset 0 starts from zeros, whatever the slot held) and writes
+        them back; its chunks must be exact length (``chunk_lens == Cb``:
+        the conv carry is the raw chunk tail), and the prefill equals the
+        monolithic one when every non-final boundary lands on a multiple of
+        ``cfg.ssm_scan_chunk``."""
         dev = self.device
         x = embed_apply(params["embed"], tokens)
         M, Cb = tokens.shape
@@ -314,13 +432,24 @@ class LM:
         slot_ids = torch.as_tensor(slot_ids, dtype=torch.int64, device=dev)
         positions = offsets[:, None] + torch.arange(Cb, device=dev)[None, :]
         data = cache.data
-        for i in range(self.cfg.n_layers):
-            x, k2, v2 = _chunk_attn_block(
-                _layer(params["layers"], i), x, data["k"][i][slot_ids],
-                data["v"][i][slot_ids], offsets, chunk_lens, positions,
-                self.cfg, policy=policy)
-            data["k"][i, slot_ids] = k2
-            data["v"][i, slot_ids] = v2
+        if self.cfg.family == "ssm":
+            fresh = offsets == 0
+            lanes = []
+            for name in ("conv", "h"):
+                t = data[name][:, slot_ids]
+                lanes.append(t.masked_fill(
+                    fresh.reshape((1, M) + (1,) * (t.dim() - 2)), 0))
+            x, (conv, h) = self._ssm_stack(params["layers"], x, states=lanes)
+            data["conv"][:, slot_ids] = conv
+            data["h"][:, slot_ids] = h
+        else:
+            for i in range(self.cfg.n_layers):
+                x, k2, v2 = _chunk_attn_block(
+                    _layer(params["layers"], i), x, data["k"][i][slot_ids],
+                    data["v"][i][slot_ids], offsets, chunk_lens, positions,
+                    self.cfg, policy=policy)
+                data["k"][i, slot_ids] = k2
+                data["v"][i, slot_ids] = v2
         length = cache.length.clone()
         length[slot_ids] = offsets + chunk_lens
         x = rmsnorm(params["final_norm"], x)

@@ -13,7 +13,8 @@ and ``'cascade_fwd'`` (rounded partial products, unrounded accumulator).
 its plain tile replay (CPU tensors), ``'pallas'`` the K3 kernel (the name of
 the JAX route it stands for) or its plain version, ``'ref'`` the plain
 k-block reference the JAX package runs on the CPU, and ``'auto'`` picks
-``'fused'`` on CUDA and ``'ref'`` on the CPU.
+``'fused'`` on CUDA and ``'ref'`` on the CPU.  ``emulated_ssm_scan`` maps
+the JAX package's scan routes the same way onto K5.
 """
 from __future__ import annotations
 
@@ -109,6 +110,33 @@ def policy_matmul(x: torch.Tensor, w: torch.Tensor, policy=None):
     out = emulated_matmul(x2, w, fmt=get_format(policy.fmt),
                           style=policy.accum_style, device=x.device)
     return out.reshape(lead + (w.shape[-1],)).to(x.dtype)
+
+
+def emulated_ssm_scan(a, b, c, *, fmt: FloatFormat | str | None,
+                      impl: str = "auto", device=None, **kw):
+    """Selective scan (the Mamba recurrence) with format-rounded operands.
+
+    a, b: (B, S, D, N); c: (B, S, N) -> (y, h_last), f32, on ``device``
+    (default CUDA; raises if it is absent).  The operands pass through
+    ``fmt``'s rounding as they are read (``None``: no rounding); the state
+    stays in f32.  impl: ``'fused'`` the K5 kernel (its plain version,
+    behind the same shape checks, for CPU tensors); ``'interpret'`` the
+    same, since the kernel has no interpret mode; ``'ref'`` the plain
+    version, with ``chunk`` and ``bd`` dropped;
+    ``'auto'`` is ``'fused'`` on CUDA and ``'ref'`` on the CPU.  ``kw``:
+    ``out_fmt``, ``chunk``, ``bd``."""
+    fmt = get_format(fmt) if fmt is not None else None
+    dev = resolve_device(device)
+    a, b, c = (torch.as_tensor(t, device=dev) for t in (a, b, c))
+    if impl == "auto":
+        impl = "fused" if _on_cuda(dev) else "ref"
+    from repro_torch.kernels import fused as _fused
+    if impl in ("fused", "interpret"):
+        return _fused.ssm_scan_quantized(a, b, c, fmt=fmt, **kw)
+    if impl == "ref":
+        kw.pop("chunk", None), kw.pop("bd", None)
+        return _fused.ssm_scan_quantized_ref(a, b, c, fmt=fmt, **kw)
+    raise ValueError(f"unknown impl {impl!r}")
 
 
 def quantize_tensor(x, *, fmt: FloatFormat | str, impl: str = "auto",

@@ -11,9 +11,13 @@ recycled.  Structure, as in the JAX engine:
     device tensors and the host syncs once per dispatch.
   * **Bucketed batched prefill** — prompt lengths are padded up to
     power-of-two buckets (exact for causal attention) and same-bucket
-    queued requests are admitted in one batched prefill.
+    queued requests are admitted in one batched prefill.  The ssm family's
+    states integrate every prompt token, pads included, so it batches at
+    exact lengths instead.
   * **Chunked prefill** (``prefill_chunk=N``) — prompts stream through
-    their lanes N tokens per step, interleaved with decode dispatches.
+    their lanes N tokens per step, interleaved with decode dispatches.  For
+    the ssm family N is rounded up to ``cfg.ssm_scan_chunk`` (the scan's
+    carry points) and chunks stay exact length.
   * **Stop tokens** — a lane freezes on the device the moment it samples
     one; the stop token is emitted, nothing after it.
   * **Deadlines** on an injected ``clock``: a request that expired before a
@@ -103,6 +107,11 @@ class BatchedServer:
                     "between chunks, so the cache dtype must equal the "
                     f"compute dtype (cache {model.cache_dtype} != compute "
                     f"{model.dtype})")
+            if model.cfg.family == "ssm":
+                # the chunked prefill resumes exactly only at the scan's
+                # carry points: round the chunk up to them
+                sc = max(int(model.cfg.ssm_scan_chunk), 1)
+                prefill_chunk = -(-prefill_chunk // sc) * sc
         self.model = model
         self.params = params
         self.slots = slots
@@ -125,8 +134,13 @@ class BatchedServer:
         self._stall_prefill_tokens = 0
         self._contended_decode_tokens = 0
         dev = model.device
+        # ssm states integrate every prompt token, so bucket pads would
+        # perturb them: that family batches at exact lengths
+        self._bucketed = self.cfg.family != "ssm"
         cache = model.init_cache(slots, max_len)
-        self._len_cap = cache.data["k"].shape[2]
+        # a KV cache caps the per-slot length; ssm states do not grow
+        self._len_cap = cache.data["k"].shape[2] if "k" in cache.data \
+            else None
         # device-resident slot state
         self.cache = DecodeCache(cache.data, torch.zeros(
             slots, dtype=torch.int64, device=dev))
@@ -196,7 +210,7 @@ class BatchedServer:
         if not np.issubdtype(prompt.dtype, np.integer):
             self._reject(req, "bad_prompt",
                          f"prompt dtype must be integer, got {prompt.dtype}")
-        if len(prompt) > self._len_cap:
+        if self._len_cap is not None and len(prompt) > self._len_cap:
             self._reject(req, "prompt_too_long",
                          f"prompt length {len(prompt)} exceeds the engine "
                          f"cache capacity {self._len_cap}")
@@ -220,6 +234,8 @@ class BatchedServer:
             self.tracer.event(req.uid, TraceEvent.ADMIT, self._clock())
 
     def _bucket(self, n: int) -> int:
+        if not self._bucketed:
+            return n
         return min(bucket_length(n, lo=self.min_bucket), self._len_cap)
 
     def _finish(self, req: Request):
@@ -261,9 +277,11 @@ class BatchedServer:
 
     def _budget_for(self, req: Request) -> int:
         """Device decode budget: the tokens after the first, capped by the
-        cache capacity."""
-        return max(min(req.max_new_tokens - 1,
-                       self._len_cap - len(req.prompt)), 0)
+        cache capacity where there is one."""
+        cap = req.max_new_tokens - 1
+        if self._len_cap is not None:
+            cap = min(cap, self._len_cap - len(req.prompt))
+        return max(cap, 0)
 
     def _commit_first(self, req: Request, slot: int, first: int,
                       budget: int, now: float) -> bool:
@@ -328,13 +346,18 @@ class BatchedServer:
         for j, req in enumerate(reqs):
             tokens[j, :len(req.prompt)] = np.asarray(req.prompt)
         budgets = [self._budget_for(r) for r in reqs]
-        last_logits, (k, v), _ = self.model.prefill_batched(
+        last_logits, kv, states = self.model.prefill_batched(
             self.params, torch.from_numpy(tokens).to(dev),
             torch.from_numpy(true_lens).to(dev))
         first = torch.argmax(last_logits, dim=-1)
         ids = torch.as_tensor(slot_ids, device=dev)
-        self.cache.data["k"][:, ids, :bucket] = k
-        self.cache.data["v"][:, ids, :bucket] = v
+        data = self.cache.data
+        if kv is not None:
+            data["k"][:, ids, :bucket] = kv[0]
+            data["v"][:, ids, :bucket] = kv[1]
+        if states is not None:
+            data["conv"][:, ids] = states[0]
+            data["h"][:, ids] = states[1]
         self.cache.length[ids] = torch.from_numpy(true_lens).to(dev)
         self._arm(slot_ids, first, budgets)
         first = first.tolist()  # one host sync per admitted batch
@@ -379,9 +402,11 @@ class BatchedServer:
 
     def _advance_prefills(self, now: float):
         """Advance every mid-prefill lane by one chunk, grouped by padded
-        chunk width (the final partial chunk pads up to a pow2 bucket).  A
-        lane whose chunk completes its prompt is armed for decode and its
-        first token committed (one host sync, only on such steps)."""
+        chunk width (the final partial chunk pads up to a pow2 bucket; ssm
+        chunks stay exact length, since the conv carry integrates raw
+        inputs).  A lane whose chunk completes its prompt is armed for
+        decode and its first token committed (one host sync, only on such
+        steps)."""
         C = self.prefill_chunk
         lanes = sorted(self._prefill_pos)
 
@@ -398,7 +423,8 @@ class BatchedServer:
             lanes = kept
         groups: Dict[int, List[int]] = {}
         for s in lanes:
-            cb = min(bucket_length(clen_of(s), lo=self.min_bucket), C)
+            cb = min(bucket_length(clen_of(s), lo=self.min_bucket), C) \
+                if self._bucketed else clen_of(s)
             groups.setdefault(cb, []).append(s)
         dev = self.model.device
         for cb, slots in sorted(groups.items()):

@@ -23,6 +23,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import fused as tfused
 from repro_torch.kernels.fma_emu import fma_emu_matmul
 from repro_torch.kernels.quantize_kernel import quantize_nd
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -47,15 +48,30 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, (str(path), bad)
 
 
+def test_slice_modules_are_scanned():
+    """The modules each slice added are among the files the scan reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("kernels/ssm_scan.py", "kernels/fused.py", "models/ssm.py",
+                "models/model.py", "numerics/emulate.py",
+                "models/numerics.py", "serve/engine.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.models import LM
     from repro_torch.models.convert import params_from_jax
-    from repro_torch.numerics import emulated_matmul, quantize_tensor
+    from repro_torch.numerics import (emulated_matmul, emulated_ssm_scan,
+                                      quantize_tensor)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tbase.get_config("tinyllama-1.1b").reduced()
+    ssm_cfg = tbase.get_config("falcon-mamba-7b").reduced()
     a = np.ones((4, 8), np.float32)
+    ab, c = np.ones((1, 64, 8, 4), np.float32), np.ones((1, 64, 4),
+                                                         np.float32)
     calls = [lambda: LM(cfg),
+             lambda: LM(ssm_cfg),
              lambda: emulated_matmul(a, a.T, fmt="bf16"),
+             lambda: emulated_ssm_scan(ab, ab, c, fmt="bf16"),
              lambda: quantize_tensor(a, fmt="bf16"),
              lambda: params_from_jax({}, cfg)]
     for call in calls:
@@ -80,11 +96,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tfused.check_operands(a, torch.ones(512, 16)[::2, ::2], tf.BF16,
                               "fused")
     meta = torch.ones(8, 256, device="meta")
+    ab = torch.ones(1, 64, 8, 4, device="meta")
+    c = torch.ones(1, 64, 4, device="meta")
     for call in (lambda: tfused.fused_qmm(meta, b.to("meta"), fmt=tf.BF16),
                  lambda: fma_emu_matmul(meta, b.to("meta"), fmt=tf.BF16),
-                 lambda: quantize_nd(meta, fmt=tf.BF16)):
+                 lambda: quantize_nd(meta, fmt=tf.BF16),
+                 lambda: ssm_scan(ab, ab, c),
+                 lambda: tfused.ssm_scan_quantized(ab, ab, c, fmt=tf.BF16)):
         with pytest.raises(ValueError, match="cpu or cuda"):
             call()
+    # shapes the scan kernels do not take
+    ab_cpu, c_cpu = torch.ones(1, 64, 8, 4), torch.ones(1, 64, 4)
+    for bad in ((ab_cpu, ab_cpu[..., :2], c_cpu), (ab_cpu, ab_cpu, c_cpu.mT),
+                (ab_cpu[0], ab_cpu[0], c_cpu)):
+        with pytest.raises(ValueError, match="bad scan shapes"):
+            ssm_scan(*bad)
+    with pytest.raises(ValueError, match="operands on"):
+        ssm_scan(ab_cpu, ab_cpu, c.to("meta"))
 
 
 def test_build_is_lazy_and_keyed_by_source(monkeypatch, tmp_path):

@@ -10,6 +10,12 @@ mismatch counts as a fault only where the top-2 logit margin (the port's) at
 that step exceeds ``MARGIN_BOUND``; after a legitimate flip the streams are
 not compared further.  ``MARGIN_BOUND`` is ten times the 1e-4 logit
 tolerance that tests/test_torch_model.py holds the two packages to.
+
+The ssm family (falcon-mamba ``reduced()``) is served too: exact-length
+batching (its states integrate pads), the chunked-prefill size rounded up
+to ``cfg.ssm_scan_chunk``, and no prompt-length cap from a KV cache it does
+not have.  Its server streams are held against the port's
+``greedy_decode`` and against the JAX engine's streams, by the same rule.
 """
 import dataclasses
 
@@ -235,3 +241,80 @@ def test_fleet_out_of_service_refuses_submits(dense):
     server.set_fleet_in_service("", True)
     server.submit(Request(uid=1, prompt=p, max_new_tokens=2))
     assert [len(r.output) for r in server.run()] == [2]
+
+
+# ------------------------------------------------------------ ssm family
+SSM_LENS, SSM_NEW = (9, 9, 70, 6, 130), (6, 4, 8, 1, 5)
+
+
+@pytest.fixture(scope="module")
+def ssm_pair():
+    jcfg = dataclasses.replace(jget_config("falcon-mamba-7b").reduced(),
+                               dtype="float32")
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b").reduced(),
+                              dtype="float32")
+    jm = JLM(jcfg)
+    jp = jm.init(jax.random.PRNGKey(5))
+    tm = LM(cfg, device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    return jm, jp, tm, tp
+
+
+@pytest.fixture(scope="module")
+def ssm_model():
+    """falcon-mamba's reduced config in its own dtype (bfloat16)."""
+    cfg = get_config("falcon-mamba-7b").reduced()
+    model = LM(cfg, device="cpu")
+    return cfg, model, model.init(seed=5)
+
+
+def _serve(server, prompts, new, dtype=np.int64, request_cls=Request):
+    reqs = [request_cls(uid=i, prompt=p.astype(dtype), max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, new))]
+    for r in reqs:
+        server.submit(r)
+    server.run(max_steps=200)
+    return reqs
+
+
+@pytest.mark.parametrize("chunk,budget", [(None, None), (40, None),
+                                          (40, 100)],
+                         ids=["monolithic", "chunked", "chunked-budget"])
+def test_ssm_server_matches_greedy_decode(ssm_model, chunk, budget):
+    """Prompts longer than max_len (no KV cap), two of one length admitted
+    in one exact-length batch, two of the chunked prompts spanning more
+    than one 64-token scan chunk."""
+    cfg, model, params = ssm_model
+    prompts = _prompts(cfg.vocab_size, SSM_LENS, seed=12)
+    refs = [greedy_decode(model, params, p, n)
+            for p, n in zip(prompts, SSM_NEW)]
+    server = BatchedServer(model, params, slots=2, max_len=32,
+                           dispatch_tokens=3, prefill_chunk=chunk,
+                           prefill_token_budget=budget)
+    assert server.prefill_chunk == (None if chunk is None else 64)
+    assert [server._bucket(n) for n in SSM_LENS] == list(SSM_LENS)
+    reqs = _serve(server, prompts, SSM_NEW)
+    for r, ref, p, n in zip(reqs, refs, prompts, SSM_NEW):
+        assert r.done and not r.expired and len(r.output) == n
+        _, margins = _margins(model, params, p, n, len(p) + n)
+        _assert_streams_agree(r.output, ref, margins, f"request {r.uid}")
+    report = server.run_report()
+    assert report["prefill_tokens"] == sum(SSM_LENS)
+    assert report["tokens_decoded"] == sum(SSM_NEW)
+
+
+@pytest.mark.parametrize("chunk", [None, 40], ids=["monolithic", "chunked"])
+def test_ssm_server_matches_jax(ssm_pair, chunk):
+    """The port's and the JAX engine's streams for the same requests, on
+    exported weights."""
+    jm, jp, tm, tp = ssm_pair
+    prompts = _prompts(256, SSM_LENS, seed=13)
+    kw = dict(slots=2, max_len=32, dispatch_tokens=3, prefill_chunk=chunk)
+    want = _serve(jengine.BatchedServer(jm, jp, **kw), prompts, SSM_NEW,
+                  np.int32, jengine.Request)
+    got = _serve(BatchedServer(tm, tp, **kw), prompts, SSM_NEW)
+    for g, w, p, n in zip(got, want, prompts, SSM_NEW):
+        assert len(w.output) == n
+        _, margins = _margins(tm, tp, p, n, len(p) + n)
+        _assert_streams_agree(g.output, w.output, margins,
+                              f"request {g.uid}")

@@ -22,6 +22,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ragged shapes, every operand format, an out_fmt, f32 subnormals, +-inf
      and NaN, with two controls the check must catch (a recurrence
      contracted into fused multiply-adds, fp8 without operand rounding);
+     K4 (fused_flash_attention) bitwise against its plain version on ragged
+     GQA shapes (groups of 1, 2, 8), head dims 16, 64 and 128, blocks of 16
+     and 128, a window, kv_len < Sk, q_offset > 0 and Sq = 1, under no
+     format, bf16, fp8_e4m3 scaled and fp8_e5m2 scaled with a bf16 out_fmt,
+     with f32 subnormals, +-0, +-inf and NaN planted, and on bf16 operands,
+     with three controls the check must catch (fp8 without rounding p,
+     scaled=False where a tile's max lies above 240, the window ignored);
   3. the dense path at the full width of tinyllama-1.1b, launch counters
      set to 0 just before: ``BatchedServer`` answers 8 requests (native bf16
      matmuls; every token of every request, and of ``greedy_decode``'s
@@ -33,6 +40,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      projection (K3); then each of K1-K3's time at the model's shapes
      beside its bound, its plain version's time and the library call's, and
      a profile of one decode step;
+  3a. the attention path at tinyllama-1.1b's full width, counters set to 0
+     just before: layer 0's q, k and v after RoPE from a 2 x 2048 prefill
+     (``_qkv`` on the normed embeddings) through ``policy_flash_attention``
+     under two emulating policies (bf16, fp8_e4m3; scaled) and
+     ``emulated_flash_attention(fmt=None)``, each output bitwise equal to
+     the plain version's on the same operands, and the unrounded K4 on the
+     operands' f32 widening within 2**-19 * max |v| of the model's own
+     attention (``policy_flash_attention`` with no policy) on the same f32
+     operands; then K4's times at that shape beside its bound, its plain
+     version's and ``scaled_dot_product_attention``'s;
+  3b. benchgen on the card: ``calibrate()`` measures the card's rates,
+     then, counters set to 0 just before and read just after,
+     ``validate`` of the default specs and two full-width flash specs
+     against those rates, in which K1, K2, K4 and K5 must each launch;
+     then one run of every spec, whose output must be finite, and every
+     row printed beside ``paper_machine()``'s prediction;
   4. the ssm path at the full width and depth of falcon-mamba-7b
      (tinyllama freed first), launch counters set to 0 just before:
      ``BatchedServer`` and ``greedy_decode`` as in 3 in bf16, every token
@@ -60,6 +83,7 @@ is the kernel table ``{"kernels": [...]}``, the last
 """
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -97,7 +121,22 @@ NEAR_TIE = 4 * 2.0 ** -8
 # are held to twice that measured floor; a floor above this share of
 # max |logit| is no longer rounding noise and fails the run
 FLOOR_CAP = 32 * 2.0 ** -8
+# layer 0's attention operands come from a prefill of this shape (the
+# model's 2048-token context)
+FLASH = dict(batch=2, prompt=2048)
+# the unrounded K4 on the operands' f32 widening against the model's own
+# attention on the same f32 operands: both compute in f32, but the model's
+# attention takes 1024-wide blocks and sums with matrix products, in another
+# order than K4's 128-wide blocks and left-to-right sums (1.3e-7 * max |v|
+# apart on normal operands at this length); an output row is a convex
+# combination of v's rows, so the bound is a share of max |v|
+FLASH_VS_MODEL = 2.0 ** -19
+# the two full-width flash specs benchgen adds to its default sweep
+FLASH_SPECS = ((("flash", "bf16", (2, 32, 2048, 64)), {}),
+               (("flash", "fp8_e4m3", (1, 36, 1024, 128)), dict(scaled=True)))
 LIBRARY_K1 = "torch.matmul(a.float(), b.float()), TF32 off"
+LIBRARY_K4 = ("torch.nn.functional.scaled_dot_product_attention on f32 "
+              "(B, H, S, D) views, is_causal=True, enable_gqa=True, TF32 off")
 NO_LIBRARY_CALL = ("none: no single PyTorch call rounds partial sums on the "
                    "128-deep k-block schedule (cascade style)")
 NO_LIBRARY_SCAN = ("none: no single PyTorch call computes a selective scan "
@@ -168,6 +207,25 @@ def qmm_bound(m, k, n, a_bytes, b_bytes, fmt):
             1e3 * 2.0 * m * k * n / peak_for(fmt))
 
 
+def flash_bound(B, Hq, Sq, Sk, D, byts, fmt, operand_type):
+    """K4's least times in ms, as its three terms: the bytes (each input
+    read once, the output written once) at the HBM rate, and the two
+    products of 2*B*Hq*Sq*Sk*D operations each (masked pairs computed, as
+    on the TPU), each at the tensor-core rate of a type that holds its
+    operands exactly.  q and k are rounded to ``fmt``, or with no format
+    stay in the operands' type; p is rounded to ``fmt``, or with no format
+    stays f32, so p@v runs at the f32 rate.  The repo's fp8_e4m3 grid
+    (max 240, least subnormal 2**-9) lies inside e4m3fn, so it takes the
+    fp8 rate.  The bound is the larger of the bytes and the two products'
+    sum."""
+    per_dot = 2.0 * B * Hq * Sq * Sk * D
+    qk_peak = peak_for(fmt) if fmt else PEAK_OPS_PER_S[operand_type]
+    pv_peak = peak_for(fmt) if fmt else PEAK_OPS_PER_S["f32"]
+    return {"bytes_ms": 1e3 * byts / HBM_BYTES_PER_S,
+            "qk_ms": 1e3 * per_dot / qk_peak,
+            "pv_ms": 1e3 * per_dot / pv_peak}
+
+
 def bound_of(t_bytes, t_ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -213,6 +271,20 @@ def card_and_build():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": per_source,
           "libraries": [_build._lib_path(n).name for n in _build.SOURCES]})
+    # what ptxas -v reported for the K4 kernels: registers and spill bytes
+    # of each (head-dim bound, operand type) instantiation, in log order
+    log = _build._lib_path("flash_attn").with_suffix(".log")
+    if log.exists():
+        text = log.read_text()
+        names = re.findall(r"Compiling entry function "
+                           r"'\w*?flash_kernelILi(\d+)E(\w+?)E", text)
+        regs = re.findall(r"Used (\d+) registers", text)
+        spills = re.findall(r"(\d+) bytes spill stores", text)
+        operands = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+        emit({"phase": "ptxas", "source": "flash_attn.cu", "kernels": [
+            {"head_dim_bound": int(d), "operands": operands.get(t, t),
+             "registers": int(r), "spill_store_bytes": int(sp)}
+            for (d, t), r, sp in zip(names, regs, spills)]})
     return smi
 
 
@@ -473,6 +545,114 @@ def check_scan_kernels(dev):
     return errs
 
 
+def flash_operands(gen, q_shape, kv_shape, dev, specials=True):
+    """q, k, v normal; with ``specials``, f32 subnormals and signed zeros
+    planted in many places and one each of NaN, +inf and -inf in q, k and
+    v."""
+    q = torch.randn(q_shape, generator=gen, device=dev)
+    k = torch.randn(kv_shape, generator=gen, device=dev)
+    v = torch.randn(kv_shape, generator=gen, device=dev)
+    if specials:
+        quiet = torch.tensor([1e-40, -3e-39, 0.0, -0.0], device=dev)
+        loud = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                            device=dev)
+        for t in (q, k, v):
+            flat = t.view(-1)
+            idx = torch.randint(0, flat.numel(), (32,), generator=gen,
+                                device=dev)
+            flat[idx] = quiet[torch.arange(32, device=dev) % 4]
+            idx = torch.randint(0, flat.numel(), (3,), generator=gen,
+                                device=dev)
+            flat[idx] = loud
+    return q, k, v
+
+
+def check_flash_kernels(dev):
+    """K4 bitwise against its plain version, and three controls the check
+    must catch."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels.fused import (fused_flash_attention,
+                                           fused_flash_ref)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    # (q (B, Sq, Hq), kv (B, Sk, Hkv), keywords): GQA groups of 2, 8 and 1,
+    # ragged lengths, q_offset with Sq != Sk, a window with kv_len < Sk, a
+    # decode shape
+    cases = [((2, 45, 4), (2, 45, 2), {}),
+             ((1, 37, 8), (1, 53, 1), dict(q_offset=16)),
+             ((2, 50, 2), (2, 50, 2), dict(window=8, kv_len=41)),
+             ((3, 1, 4), (3, 70, 2), dict(q_offset=69))]
+    fmts = ((None, False, None), (F.BF16, True, None),
+            (F.FP8_E4M3, True, None), (F.FP8_E5M2, True, F.BF16))
+    err, n_checks = 0.0, 0
+    for D in (16, 64, 128):
+        for block in (16, 128):
+            for (B, Sq, Hq), (_, Sk, Hkv), kw in cases:
+                q, k, v = flash_operands(gen, (B, Sq, Hq, D),
+                                         (B, Sk, Hkv, D), dev)
+                for fmt, scaled, out_fmt in fmts:
+                    args = dict(fmt=fmt, scaled=scaled, out_fmt=out_fmt,
+                                block_q=block, block_k=block, **kw)
+                    got = fused_flash_attention(q, k, v, **args)
+                    want = fused_flash_ref(q, k, v, **args)
+                    bad = mismatches(got, want)
+                    check(bad == 0, f"K4 q {(B, Sq, Hq, D)} kv "
+                          f"{(B, Sk, Hkv, D)} {kw} block {block} fmt="
+                          f"{getattr(fmt, 'name', None)}: {bad} entries "
+                          f"differ (max err {max_abs_err(got, want)})")
+                    err = max(err, max_abs_err(got, want))
+                    n_checks += 1
+    # bf16 operands at tinyllama's heads (32 / 4, D = 64), read as they are
+    q, k, v = (t.to(torch.bfloat16) for t in flash_operands(
+        gen, (2, 300, 32, 64), (2, 300, 4, 64), dev, specials=False))
+    for fmt in (None, F.BF16, F.FP8_E4M3):
+        got = fused_flash_attention(q, k, v, fmt=fmt)
+        want = fused_flash_ref(q, k, v, fmt=fmt)
+        check(got.dtype == torch.bfloat16 and mismatches(got, want) == 0,
+              f"K4 on bf16 operands, fmt={getattr(fmt, 'name', None)}: "
+              f"{mismatches(got, want)} entries differ")
+        n_checks += 1
+    torch.cuda.synchronize()
+
+    # controls: fp8 with q, k and v rounded but p not (the unscaled rounding
+    # is elementwise, so that is the unrounded schedule on rounded
+    # operands); scaled=False where q's tile max lies above 240, without a
+    # causal mask (a masked score far above the row max gives inf * 0 = NaN
+    # in both versions, by the reference's rule); the window ignored
+    q, k, v = flash_operands(gen, (2, 256, 8, 64), (2, 256, 2, 64), dev,
+                             specials=False)
+    e4 = F.FP8_E4M3
+    big = q * 300.0
+    scaled_big = fused_flash_attention(big, k, v, fmt=e4, causal=False)
+    check(bool(torch.isfinite(scaled_big).all()),
+          "K4 scaled fp8 on a q tile above 240 is not finite")
+    controls = {
+        "fp8_without_rounding_p": mismatches(
+            fused_flash_attention(q, k, v, fmt=e4, scaled=False),
+            fused_flash_ref(F.quantize(q, e4), F.quantize(k, e4),
+                            F.quantize(v, e4), fmt=None)),
+        "unscaled_above_240": mismatches(
+            scaled_big, fused_flash_ref(big, k, v, fmt=e4, scaled=False,
+                                        causal=False)),
+        "window_ignored": mismatches(
+            fused_flash_attention(q, k, v, fmt=None, window=32),
+            fused_flash_ref(q, k, v, fmt=None)),
+    }
+    for name, bad in controls.items():
+        check(bad > 0, f"control {name}: the check did not catch it")
+    emit({"phase": "check", "kernel": "fused_flash_attention",
+          "checks": n_checks, "head_dims": [16, 64, 128],
+          "blocks": [16, 128], "cases": [[list(c[0]), list(c[1]), c[2]]
+                                         for c in cases],
+          "formats": ["none", "bf16 scaled", "fp8_e4m3 scaled",
+                      "fp8_e5m2 scaled, out bf16"],
+          "tolerance": "bitwise: every entry equal to the plain version's "
+                       "(NaN equal to NaN)",
+          "max_abs_err": err, "controls_entries_differing": controls,
+          "control_entries": int(q.numel())})
+    return {"fused_flash_attention": err}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
@@ -687,6 +867,163 @@ def serve_f32(cfg, params, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+def attention_layer0_operands(model, params, rng):
+    """Layer 0's q, k and v after RoPE for a prefill of FLASH's shape,
+    through the functions the dense block runs: the block's norm of the
+    embeddings, then ``_qkv`` (no policy: the model's native path)."""
+    from repro_torch.models.layers import embed_apply, rmsnorm
+    from repro_torch.models.model import _layer, _qkv
+    cfg, dev = model.cfg, model.device
+    B, S = FLASH["batch"], FLASH["prompt"]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device=dev)
+    lp = _layer(params["layers"], 0)
+    h = rmsnorm(lp["ln1"], embed_apply(params["embed"], toks))
+    positions = torch.arange(S, device=dev)[None, :]
+    return _qkv(lp, h, cfg, positions, None)
+
+
+def attention_full_width(model, params, rng):
+    """K4 on layer 0's full-width attention operands through the entry
+    points a user calls: ``policy_flash_attention`` under bf16 and fp8_e4m3
+    (scaled, the default) and ``emulated_flash_attention(fmt=None)``, each
+    bitwise equal to the plain version; the unrounded K4 on the operands'
+    f32 widening against the model's own attention on the same operands."""
+    from repro_torch.kernels.fused import fused_flash_ref
+    from repro_torch.models.numerics import (EmulatedPolicy,
+                                             policy_flash_attention)
+    from repro_torch.numerics import emulated_flash_attention, get_format
+    q, k, v = attention_layer0_operands(model, params, rng)
+    check(bool(torch.isfinite(q).all() and torch.isfinite(k).all()
+               and torch.isfinite(v).all()), "non-finite attention operands")
+    outs = {}
+    for label, pol in (("bf16", EmulatedPolicy("bf16", "fused")),
+                       ("fp8_e4m3", EmulatedPolicy("fp8_e4m3", "fused"))):
+        outs[label] = (policy_flash_attention(q, k, v, pol),
+                       get_format(pol.fmt))
+    outs["none"] = (emulated_flash_attention(q, k, v, fmt=None,
+                                             device=q.device), None)
+    exact = {}
+    for label, (out, fmt) in outs.items():
+        check(out.shape == q.shape and out.dtype == q.dtype
+              and bool(torch.isfinite(out).all()),
+              f"K4 {label}: output {tuple(out.shape)} {out.dtype}, finite "
+              f"{bool(torch.isfinite(out).all())}")
+        bad = mismatches(out, fused_flash_ref(q, k, v, fmt=fmt))
+        check(bad == 0, f"K4 {label}: {bad} entries differ from the plain "
+              "version at full width")
+        exact[label] = True
+    # the unrounded K4 against the model's own attention (the inert policy
+    # path) on the operands' f32 widening, which is exact
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    k4 = emulated_flash_attention(q32, k32, v32, fmt=None, device=q.device)
+    model_attn = policy_flash_attention(q32, k32, v32, None)
+    vmax = float(v32.abs().max())
+    gap = float((k4 - model_attn).abs().max())
+    check(gap <= FLASH_VS_MODEL * vmax, f"unrounded K4 vs the model's "
+          f"attention: {gap} > {FLASH_VS_MODEL} * max|v| = "
+          f"{FLASH_VS_MODEL * vmax}")
+    check(torch.equal(k4.to(q.dtype), outs["none"][0]),
+          "K4 on the f32 widening, cast back, differs from K4 on bf16")
+    base = outs["none"][0].float()
+    scale = float(base.abs().max())
+    emit({"phase": "attention_full_width", "arch": model.cfg.name,
+          "layer": 0, "q": list(q.shape), "kv": list(k.shape),
+          "dtype": str(q.dtype).replace("torch.", ""),
+          "exact_vs_plain": exact,
+          "unrounded_vs_model_attention": {
+              "max_abs": gap, "share_of_max_v": gap / vmax,
+              "limit_share_of_max_v": FLASH_VS_MODEL},
+          "rel_gap_to_unrounded": {
+              label: float((outs[label][0].float() - base).abs().max())
+              / scale for label in ("bf16", "fp8_e4m3")},
+          "max_abs_out": scale})
+    return q, k, v
+
+
+def time_flash_kernel(dev, operands, errs):
+    """K4 at the full-width shape: median of 10 launches with the L2
+    flushed under no format, bf16 and fp8_e4m3 (scaled), beside the bound,
+    the plain version's time (3 runs) and, with no format, the library
+    call's."""
+    import torch.nn.functional as TF
+    from repro_torch.core import formats as F
+    from repro_torch.kernels.fused import (fused_flash_attention,
+                                           fused_flash_ref)
+    q, k, v = operands
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    ms, plain = {}, {}
+    for fmt in (None, F.BF16, F.FP8_E4M3):
+        name = fmt.name if fmt else "none"
+        ms[name] = time_ms(lambda: fused_flash_attention(q, k, v, fmt=fmt),
+                           flush)
+        plain[name] = time_ms(lambda: fused_flash_ref(q, k, v, fmt=fmt),
+                              flush, reps=3, warm=1)
+    qt, kt, vt = (t.float().transpose(1, 2) for t in (q, k, v))
+    library = time_ms(lambda: TF.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+    esize = q.element_size()
+    byts = esize * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    operand_type = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    terms = {name: flash_bound(B, Hq, S, S, D, byts, fmt, operand_type)
+             for name, fmt in zip(ms, (None, F.BF16, F.FP8_E4M3))}
+    bounds = {n: bound_of(t["bytes_ms"], t["qk_ms"] + t["pv_ms"])
+              for n, t in terms.items()}
+    emit({"phase": "times", "kernel": "fused_flash_attention",
+          "shape": {"q": list(q.shape), "kv": list(k.shape)},
+          "dtype": str(q.dtype).replace("torch.", ""),
+          "unit": "ms per launch, median of 10, L2 flushed; plain median of "
+                  "3", "ms_by_fmt": ms, "plain_ms_by_fmt": plain,
+          "bound_ms_by_fmt": {n: b[0] for n, b in bounds.items()},
+          "bound_by": {n: b[1] for n, b in bounds.items()},
+          "bound_terms_ms_by_fmt": terms, "bytes": byts,
+          "operations": 4.0 * B * Hq * S * S * D,
+          "library_ms_fmt_none": library,
+          "library_call": LIBRARY_K4})
+    return dict(name="fused_flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attn.cu",
+                replaces="src/repro/kernels/fused.py:343",
+                max_abs_err=errs["fused_flash_attention"], ms=ms["none"],
+                plain_ms=plain["none"], bound_ms=bounds["none"][0],
+                bound_by=bounds["none"][1], library_ms=library,
+                library_call=LIBRARY_K4, ms_by_fmt=ms,
+                plain_ms_by_fmt=plain,
+                bound_ms_by_fmt={n: b[0] for n, b in bounds.items()},
+                bound_terms_ms_by_fmt=terms,
+                work=f"layer 0 of {ARCH}: q {list(q.shape)}, k and v "
+                     f"{list(k.shape)} bf16, causal, fmt none (the row's "
+                     "times; ms_by_fmt has bf16 and fp8_e4m3)")
+
+
+def benchgen_specs():
+    from repro_torch.benchgen import KernelSpec, default_specs
+    return default_specs() + [KernelSpec(*a, **kw) for a, kw in FLASH_SPECS]
+
+
+def benchgen_report(dev, specs, machine, out):
+    """After the counted ``validate`` run: one run of every spec's kernel,
+    whose output must be finite, and every row printed beside the
+    prediction at ``paper_machine()``'s data-sheet rates."""
+    from repro_torch.benchgen import (build, make_inputs, paper_machine,
+                                      predict)
+    for spec in specs:
+        res = build(spec, device=dev)(*make_inputs(spec, device=dev))
+        check(bool(torch.isfinite(res).all()),
+              f"benchgen {spec.name}: non-finite output")
+    emit({"phase": "benchgen", "paper_machine": paper_machine().as_dict(),
+          "calibrated": machine.as_dict(), "tol": out["tol"],
+          "rows": [{"spec": r["spec"]["name"], "t_pred_s": r["t_pred_s"],
+                    "t_meas_s": r["t_meas_s"], "ratio": r["ratio"],
+                    "bottleneck": r["bottleneck"],
+                    "within_tol": r["within_tol"],
+                    "t_pred_paper_machine_s": predict(
+                        spec, paper_machine()).step_time_bound_s}
+                   for spec, r in zip(specs, out["rows"])],
+          "summary": out["summary"], "outputs_finite": True})
 
 
 def ssm_layer0_operands(model, params, rng):
@@ -1053,9 +1390,11 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.benchgen import calibrate, validate
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.fma_emu import fma_emu_matmul
-    from repro_torch.kernels.fused import fused_qmm, ssm_scan_quantized
+    from repro_torch.kernels.fused import (fused_flash_attention, fused_qmm,
+                                           ssm_scan_quantized)
     from repro_torch.kernels.quantize_kernel import quantize_nd
     from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.models import LM
@@ -1065,12 +1404,15 @@ def main():
     smi = card_and_build()
     errs = check_kernels(dev)
     errs.update(check_scan_kernels(dev))
+    errs.update(check_flash_kernels(dev))
     check_small_lm(dev)
 
     wrappers = {"fused_qmm": fused_qmm, "quantize_nd": quantize_nd,
                 "fma_emu_matmul": fma_emu_matmul,
+                "fused_flash_attention": fused_flash_attention,
                 "ssm_scan_quantized": ssm_scan_quantized,
                 "ssm_scan": ssm_scan}
+    paths = {}
 
     def drive(path, kernels_of_path, *steps):
         """The path's steps with every launch count set to 0 just before
@@ -1084,6 +1426,7 @@ def main():
         for name in kernels_of_path:
             check(counts[name] > 0, f"{name} was not launched on the "
                   f"{path} path")
+        paths[path] = counts
         return counts, out
 
     # the dense path: tinyllama-1.1b
@@ -1097,6 +1440,21 @@ def main():
                      lambda: user_calls_full_width(model, params))
     kernels = time_kernels(dev, cfg, dense, errs)
     profile_decode(model, params, rng)
+
+    # the attention path: K4 on tinyllama-1.1b's layer 0 at full width,
+    # then benchgen's generated kernels on the card
+    _, (flash_operands_,) = drive(
+        f"{ARCH} attention", ("fused_flash_attention",),
+        lambda: attention_full_width(model, params, rng))
+    kernels.append(time_flash_kernel(dev, flash_operands_, errs))
+    del flash_operands_
+    specs = benchgen_specs()
+    machine = calibrate(device=dev)  # launches K2: outside the window
+    _, (bench,) = drive(
+        "benchgen", ("fused_qmm", "quantize_nd", "fused_flash_attention",
+                     "ssm_scan_quantized"),
+        lambda: validate(specs, machine=machine, device=dev))
+    benchgen_report(dev, specs, machine, bench)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1123,9 +1481,10 @@ def main():
     kernels += time_scan_kernels(dev, operands, ssm_counts, errs)
     del operands
     profile_decode(smodel, sparams, rng)
-    for row in kernels:  # launches on both paths of this run
+    for row in kernels:  # launches on every path of this run
         row["max_abs_err"] = errs[row["name"]]
-        by_path = {ARCH: dense[row["name"]], SSM_ARCH: ssm_counts[row["name"]]}
+        by_path = {path: counts[row["name"]]
+                   for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 

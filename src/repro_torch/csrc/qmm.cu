@@ -55,15 +55,6 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Scale exponent of a tile from the bit pattern of its largest |x|: the max
-// over (bits & 0x7fffffff) orders NaN above inf, so a NaN tile gets the
-// exponent field 255 as jnp.max(jnp.abs(x)) gives it (fmaxf would drop NaN).
-__device__ __forceinline__ int tile_scale_exp(unsigned max_bits, const QFmt f) {
-  int e = (int)((max_bits >> 23) & 0xFFu) - 127;
-  int target = min(max(e, f.emin), f.emax - 1);
-  return min(max(e - target, -126), 126);
-}
-
 // One block per logical 128 x 128 tile of a (rows x cols) matrix in each of
 // `nbatch` slices: out[batch][tile_r][tile_c] = the tile's scale exponent.
 template <typename T>
@@ -78,7 +69,7 @@ scale_exp_kernel(const T* __restrict__ x, long long s_batch, long long s_row,
     int r = tr * 128 + idx / 128, c = tc * 128 + idx % 128;
     if (r < rows && c < cols) {
       float v = widen(xb[r * s_row + c * s_col]);
-      m = max(m, __float_as_uint(v) & 0x7fffffffu);
+      m = max(m, abs_bits(v));
     }
   }
   for (int off = 16; off > 0; off >>= 1)

@@ -1,6 +1,7 @@
-// Round-to-format (RNE) on f32, the device function shared by the quantize
-// kernel (K2, quantize.cu) and the emulated-precision matmul kernels (K1/K3,
-// qmm.cu).
+// Round-to-format (RNE) on f32 and the power-of-two tile scale, the device
+// functions shared by the quantize kernel (K2, quantize.cu), the
+// emulated-precision matmul kernels (K1/K3, qmm.cu), the selective scan
+// (K5/K6, ssm_scan.cu) and the emulated flash attention (K4, flash_attn.cu).
 //
 // Mirrors repro/core/formats.py::quantize op for op: exponent from the f32
 // bits, clamp to [emin, emax], a scale of 2**(q_exp - man) built from
@@ -44,6 +45,23 @@ __device__ __forceinline__ float pow2_from_exp(int e) {
 // floor(log2|x|) for normal f32; -127 for zeros and subnormals.
 __device__ __forceinline__ int unbiased_exp_f32(float x) {
   return (int)((__float_as_uint(x) >> 23) & 0xFFu) - 127;
+}
+
+// The max magnitude of a tile is taken over abs_bits(x) = bits & 0x7fffffff:
+// as unsigned integers these order NaN above inf above every finite value,
+// so a NaN tile gets the exponent field 255 as jnp.max(jnp.abs(x)) and
+// torch's amax give it (fmaxf would drop NaN).
+__device__ __forceinline__ unsigned abs_bits(float x) {
+  return __float_as_uint(x) & 0x7fffffffu;
+}
+
+// Scale exponent of a tile from the bit pattern of its largest |x|
+// (repro/kernels/fused.py::_pow2_scale): the binade clip(e, emin, emax - 1)
+// is the target, and the exponent moving e there is clipped to [-126, 126].
+__device__ __forceinline__ int tile_scale_exp(unsigned max_bits, const QFmt f) {
+  int e = (int)((max_bits >> 23) & 0xFFu) - 127;
+  int target = min(max(e, f.emin), f.emax - 1);
+  return min(max(e - target, -126), 126);
 }
 
 __device__ __forceinline__ float quantize_rne(float x, const QFmt f) {

@@ -4,6 +4,8 @@
     emulated-precision matmul, ``csrc/qmm.cu``;
   * ``quantize_kernel.quantize_nd`` (K2): round-to-format,
     ``csrc/quantize.cu``;
+  * ``fused.fused_flash_attention`` (K4): blockwise flash attention with
+    per-block quantize/dequant, ``csrc/flash_attn.cu``;
   * ``fused.ssm_scan_quantized`` (K5) and ``ssm_scan.ssm_scan`` (K6): the
     selective scan with and without format-rounded operands,
     ``csrc/ssm_scan.cu``.

@@ -1,9 +1,9 @@
-"""K1: fused quantize + matmul + dequant on the card (``csrc/qmm.cu``), and
-K5: the selective scan with format-rounded operands (``csrc/ssm_scan.cu``).
+"""K1: fused quantize + matmul + dequant on the card (``csrc/qmm.cu``),
+K4: blockwise flash attention with per-block quantize/dequant
+(``csrc/flash_attn.cu``), and K5: the selective scan with format-rounded
+operands (``csrc/ssm_scan.cu``).
 
-Counterpart of the ``fused_qmm`` and ``ssm_scan_quantized`` parts of
-``repro.kernels.fused`` (``fused_flash_attention`` arrives with the
-attention slice).
+Counterpart of ``repro.kernels.fused``.
 
 K1: the TPU kernel ran the grid (B, M/128, N/128, K/128) with the k axis
 sequential into a VMEM accumulator; the CUDA kernel gives each thread block
@@ -15,6 +15,14 @@ exponent bits of the tile's largest magnitude, so rescaling adds no rounding
 of its own and a scaled product equals the unscaled one wherever the
 format's range suffices.
 
+K4: the TPU kernel ran the grid (B, Hq, Sq/bq, Sk/bk) with the kv axis
+sequential into VMEM online-softmax state; the CUDA kernel gives each thread
+block one (q block, head, batch) and loops over the kv blocks inside it.
+``fused_flash_ref`` is its plain version, the same block schedule with every
+sum in the kernel's fixed order (so the two are bitwise equal on the card);
+``fused_flash_scan`` is the fast twin that sums with matrix products, the
+CPU path of ``emulated_flash_attention``.
+
 K5 shares K6's device code (``kernels/ssm_scan.py``) with the operands
 rounded as they are read; ``ssm_scan_quantized_ref`` is its plain version.
 """
@@ -22,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -220,3 +229,284 @@ def ssm_scan_quantized(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
 
 
 ssm_scan_quantized.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: blockwise flash attention with per-block quantize/dequant
+# (csrc/flash_attn.cu)
+# ---------------------------------------------------------------------------
+NEG_INF = -1.0e30
+#: what the kernel takes: head dims up to 128 and blocks of up to 128 rows
+#: (one thread per q row; the rounded tiles of a block pair in shared memory)
+FLASH_MAX_D = 128
+FLASH_MAX_BLOCK = 128
+
+
+def _qk_ordered(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """s[..., i, j] = the sum over d = 0..D-1, left to right, of
+    q[..., i, d] * k[..., j, d]: one rounded multiply and one rounded add
+    per term, the first term taken as it is (the kernel's order)."""
+    s = q[..., :, None, 0] * k[..., None, :, 0]
+    for d in range(1, q.shape[-1]):
+        s = s + q[..., :, None, d] * k[..., None, :, d]
+    return s
+
+
+def _pv_ordered(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """out[..., i, d] = the sum over j = 0..bk-1, left to right, of
+    p[..., i, j] * v[..., j, d] (the kernel's order)."""
+    out = p[..., :, 0, None] * v[..., None, 0, :]
+    for j in range(1, p.shape[-1]):
+        out = out + p[..., :, j, None] * v[..., None, j, :]
+    return out
+
+
+def _rowsum_ordered(p: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dim, left to right (the kernel's order)."""
+    out = p[..., 0]
+    for j in range(1, p.shape[-1]):
+        out = out + p[..., j]
+    return out
+
+
+def _quantize_tile(x: torch.Tensor, fmt: FloatFormat, scaled: bool):
+    """Round tiles (the last two dims) to ``fmt``; returns (q, dequant
+    scale), the scale None when unscaled."""
+    if not scaled:
+        return quantize(x, fmt), None
+    scale, inv = _pow2_scale(x, fmt, dims=(-2, -1))
+    return quantize(x * inv, fmt), scale
+
+
+def _flash_block_update(carry, q_blk, k_blk, v_blk, mask, *, scale: float,
+                        fmt: FloatFormat | None, scaled: bool,
+                        ordered: bool):
+    """One (q-block, kv-block) online-softmax update, batched over leading
+    dims: q_blk (..., bq, D), k_blk and v_blk (..., bk, D), ``mask``
+    (..., bq, bk).  With ``fmt`` set, q/k/v are rounded per tile (exact pow2
+    scaling when ``scaled``) and each partial dot is dequantized before it
+    enters the f32 state.  ``ordered`` sums in the kernel's fixed order
+    (``fused_flash_ref``); otherwise with matrix products
+    (``fused_flash_scan``)."""
+    m, l, acc = carry
+    if fmt is not None:
+        qq, sq = _quantize_tile(q_blk, fmt, scaled)
+        qk, sk = _quantize_tile(k_blk, fmt, scaled)
+        qv, sv = _quantize_tile(v_blk, fmt, scaled)
+    else:
+        qq, qk, qv = q_blk, k_blk, v_blk
+        sq = sk = sv = None
+    s = _qk_ordered(qq, qk) if ordered else qq @ qk.mT
+    if sq is not None:
+        s = s * (sq * sk)
+    s = s * scale
+    s_m = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s_m.amax(dim=-1))
+    m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+    # a product, not a select: a masked score far above m_safe gives
+    # inf * 0 = NaN, as in the reference
+    p = torch.exp(s - m_safe[..., None]) * mask
+    corr = torch.exp(torch.clamp(m - m_safe, max=0.0)) * (m > NEG_INF / 2)
+    l_new = l * corr + (_rowsum_ordered(p) if ordered else p.sum(dim=-1))
+    if fmt is not None:
+        # the probability operand register: p is in [0, 1], no scale needed
+        p = quantize(p, fmt)
+    pv = _pv_ordered(p, qv) if ordered else p @ qv
+    if sv is not None:
+        pv = pv * sv
+    acc_new = acc * corr[..., None] + pv
+    return m_new, l_new, acc_new
+
+
+def _flash_mask(q_pos, k_pos, *, causal: bool, window: int, kv_len: int):
+    m = k_pos[None, :] < kv_len
+    if causal:
+        m = m & (k_pos[None, :] <= q_pos[:, None])
+    if window:
+        m = m & (k_pos[None, :] > q_pos[:, None] - window)
+    return m
+
+
+def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 block_q: int, block_k: int) -> None:
+    """q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) on one device, Hq a
+    multiple of Hkv; raises otherwise."""
+    if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape) \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or 0 in q.shape[:2] or k.shape[1] == 0:
+        raise ValueError(f"bad flash shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"operands on {q.device}, {k.device}, {v.device}")
+    Hq, Hkv = q.shape[2], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"blocks must be positive, got {block_q}, "
+                         f"{block_k}")
+
+
+def _f32_scale(D: int) -> float:
+    """1/sqrt(D) rounded to f32 (not exact for D = 128), as the float the
+    kernel gets."""
+    return float(torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32))
+
+
+def _flash_forward(q, k, v, *, fmt, scaled, causal, window, kv_len,
+                   q_offset, out_fmt, block_q, block_k, ordered):
+    """The block schedule of K4 in PyTorch, vectorised over batch, heads and
+    q blocks, in order over the kv blocks."""
+    _check_flash(q, k, v, block_q, block_k)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = _f32_scale(D)
+    kv_len = Sk if kv_len is None else kv_len
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    pq, pk = (-Sq) % bq, (-Sk) % bk
+    nq, nk = (Sq + pq) // bq, (Sk + pk) // bk
+    # q: (B, Hkv, G, nq, bq, D); k, v: (B, Hkv, nk, bk, D) -- q head h reads
+    # kv head h // G through broadcasting, with no repeated KV
+    qf = F.pad(q.to(torch.float32), (0, 0, 0, 0, 0, pq)).reshape(
+        B, nq, bq, Hkv, G, D).permute(0, 3, 4, 1, 2, 5)
+    kf, vf = (F.pad(t.to(torch.float32), (0, 0, 0, 0, 0, pk)).reshape(
+        B, nk, bk, Hkv, D).permute(0, 3, 1, 2, 4) for t in (k, v))
+    dev = q.device
+    q_pos = q_offset + torch.arange(nq * bq, device=dev)
+    m = torch.full((B, Hkv, G, nq, bq), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, G, nq, bq), device=dev)
+    acc = torch.zeros((B, Hkv, G, nq, bq, D), device=dev)
+    for kj in range(nk):
+        k_pos = kj * bk + torch.arange(bk, device=dev)
+        mask = _flash_mask(q_pos, k_pos, causal=causal, window=window,
+                           kv_len=kv_len).expand(nq * bq, bk).reshape(
+                               nq, bq, bk)
+        m, l, acc = _flash_block_update(
+            (m, l, acc), qf, kf[:, :, None, None, kj],
+            vf[:, :, None, None, kj], mask, scale=scale, fmt=fmt,
+            scaled=scaled, ordered=ordered)
+    out = acc / torch.maximum(l, l.new_tensor(1e-30))[..., None]
+    if out_fmt is not None:
+        out = quantize(out, out_fmt)
+    out = out.permute(0, 3, 4, 1, 2, 5).reshape(B, nq * bq, Hq, D)[:, :Sq]
+    return out.to(q.dtype)
+
+
+def fused_flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    fmt: FloatFormat | None, scaled: bool = True,
+                    causal: bool = True, window: int = 0,
+                    kv_len: int | None = None, q_offset: int = 0,
+                    out_fmt: FloatFormat | None = None, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """Plain version of ``fused_flash_attention``: the kernel's block
+    schedule and op order, every sum in the kernel's fixed order (s over d,
+    l and pv over j, each left to right), so the two are bitwise equal on
+    the card."""
+    return _flash_forward(q, k, v, fmt=fmt, scaled=scaled, causal=causal,
+                          window=window, kv_len=kv_len, q_offset=q_offset,
+                          out_fmt=out_fmt, block_q=block_q, block_k=block_k,
+                          ordered=True)
+
+
+def fused_flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     fmt: FloatFormat | None, scaled: bool = True,
+                     causal: bool = True, window: int = 0,
+                     kv_len: int | None = None, q_offset: int = 0,
+                     out_fmt: FloatFormat | None = None, block_q: int = 128,
+                     block_k: int = 128) -> torch.Tensor:
+    """Fast twin (the CPU path of ``emulated_flash_attention``): the same
+    block schedule and per-block math, with the dots as matrix products, so
+    it agrees with the kernel to f32 tolerance rather than bitwise.  On a
+    CUDA tensor it refuses to run with TF32 matmuls enabled."""
+    if q.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("fused_flash_scan needs IEEE f32 matmuls: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    return _flash_forward(q, k, v, fmt=fmt, scaled=scaled, causal=causal,
+                          window=window, kv_len=kv_len, q_offset=q_offset,
+                          out_fmt=out_fmt, block_q=block_q, block_k=block_k,
+                          ordered=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_entry():
+    """The C entry point of K4, built and loaded at first use."""
+    fn = _build.load("flash_attn").repro_flash_attention
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p] + [i] * 18 + [ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _flash_launch(q, k, v, fmt, scaled, causal, window, kv_len, q_offset,
+                  out_fmt, bq, bk) -> torch.Tensor:
+    """One launch of K4 on CUDA operands; out in q's dtype.  The caller
+    counts the launch."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if D > FLASH_MAX_D:
+        raise ValueError(f"the flash kernel takes head dims up to "
+                         f"{FLASH_MAX_D}, got D={D}")
+    if bq > FLASH_MAX_BLOCK or bk > FLASH_MAX_BLOCK:
+        raise ValueError(f"the flash kernel takes blocks up to "
+                         f"{FLASH_MAX_BLOCK} rows, got {bq} and {bk}")
+    for f in (fmt, out_fmt):
+        if f is not None and (f.exp_bits > 8 or f.man_bits > 23):
+            raise ValueError(f"f32 flash path supports sub-f32 formats, "
+                             f"got {f}")
+    # bf16 operands are read as they are; anything else is widened (or, for
+    # float64, rounded) to f32 first, as the JAX kernel's astype(float32)
+    q_dtype = q.dtype
+    dt = torch.bfloat16 if q.dtype == k.dtype == v.dtype == torch.bfloat16 \
+        else torch.float32
+    q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
+    out = torch.empty((B, Sq, Hq, D), dtype=dt, device=q.device)
+    exp_bits, man_bits = (fmt.exp_bits, fmt.man_bits) if fmt else (0, 0)
+    out_exp, out_man = (out_fmt.exp_bits, out_fmt.man_bits) if out_fmt \
+        else (0, 0)
+    rc = _flash_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(dt == torch.bfloat16), B, Sq, Sk, Hq, Hkv, D, bq, bk, exp_bits,
+        man_bits, int(scaled), out_exp, out_man, int(causal), int(window),
+        int(kv_len), int(q_offset), _f32_scale(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash attention kernel")
+    return out if dt == q_dtype else out.to(q_dtype)
+
+
+def fused_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, fmt: FloatFormat | None, scaled: bool = True,
+                          causal: bool = True, window: int = 0,
+                          kv_len: int | None = None, q_offset: int = 0,
+                          out_fmt: FloatFormat | None = None,
+                          block_q: int = 128,
+                          block_k: int = 128) -> torch.Tensor:
+    """Blockwise flash attention with per-block quantize/dequant.
+
+    q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype,
+    computed in f32.  Every q/k/v tile is rounded to ``fmt`` (exact pow2
+    scaling when ``scaled``), the probabilities too, and each partial dot
+    is dequantized into the f32 online-softmax state; ``fmt=None`` runs the
+    same schedule unrounded.  q head h reads kv head h // (Hq // Hkv).
+    ``kv_len`` masks keys at or beyond it, ``q_offset`` is q[0]'s position,
+    ``window`` > 0 keeps the last ``window`` keys.  CPU tensors take
+    ``fused_flash_ref`` behind the same argument checks; a CUDA tensor
+    launches the kernel (D and the blocks up to 128) and counts the launch
+    in ``fused_flash_attention.launches``."""
+    _check_flash(q, k, v, block_q, block_k)
+    kw = dict(fmt=fmt, scaled=scaled, causal=causal, window=window,
+              kv_len=kv_len, q_offset=q_offset, out_fmt=out_fmt)
+    if q.device.type == "cpu":
+        return fused_flash_ref(q, k, v, block_q=block_q, block_k=block_k,
+                               **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_flash_attention runs on cpu or cuda, got "
+                         f"{q.device}")
+    Sq, Sk = q.shape[1], k.shape[1]
+    kw["kv_len"] = Sk if kv_len is None else kv_len
+    out = _flash_launch(q, k, v, bq=min(block_q, Sq), bk=min(block_k, Sk),
+                        **kw)
+    fused_flash_attention.launches += 1
+    return out
+
+
+fused_flash_attention.launches = 0

@@ -13,8 +13,9 @@ and ``'cascade_fwd'`` (rounded partial products, unrounded accumulator).
 its plain tile replay (CPU tensors), ``'pallas'`` the K3 kernel (the name of
 the JAX route it stands for) or its plain version, ``'ref'`` the plain
 k-block reference the JAX package runs on the CPU, and ``'auto'`` picks
-``'fused'`` on CUDA and ``'ref'`` on the CPU.  ``emulated_ssm_scan`` maps
-the JAX package's scan routes the same way onto K5.
+``'fused'`` on CUDA and ``'ref'`` on the CPU.  ``emulated_ssm_scan`` and
+``emulated_flash_attention`` map the JAX package's scan and attention routes
+the same way onto K5 and K4.
 """
 from __future__ import annotations
 
@@ -136,6 +137,38 @@ def emulated_ssm_scan(a, b, c, *, fmt: FloatFormat | str | None,
     if impl == "ref":
         kw.pop("chunk", None), kw.pop("bd", None)
         return _fused.ssm_scan_quantized_ref(a, b, c, fmt=fmt, **kw)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def emulated_flash_attention(q, k, v, *, fmt: FloatFormat | str | None,
+                             impl: str = "auto", scaled: bool = True,
+                             device=None, **kw) -> torch.Tensor:
+    """Blockwise flash attention under FPMax-emulated numerics.
+
+    q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype,
+    on ``device`` (default CUDA; raises if it is absent).  Per-block
+    rounding of q/k/v (and the probability operand) with per-block dequant
+    of each partial dot; ``fmt=None`` runs the same schedule unrounded.
+    impl: ``'fused'`` the K4 kernel (its plain version, behind the same
+    argument checks, for CPU tensors); ``'interpret'`` the same, since the
+    kernel has no interpret mode; ``'ref'`` the plain version in the
+    kernel's op order; ``'scan'`` the fast twin with matrix-product dots;
+    ``'auto'`` is ``'fused'`` on CUDA and ``'scan'`` on the CPU.  ``kw``:
+    ``causal``, ``window``, ``kv_len``, ``q_offset``, ``out_fmt``,
+    ``block_q``, ``block_k``."""
+    fmt = get_format(fmt) if fmt is not None else None
+    dev = resolve_device(device)
+    q, k, v = (torch.as_tensor(t, device=dev) for t in (q, k, v))
+    if impl == "auto":
+        impl = "fused" if _on_cuda(dev) else "scan"
+    from repro_torch.kernels import fused as _fused
+    if impl in ("fused", "interpret"):
+        return _fused.fused_flash_attention(q, k, v, fmt=fmt, scaled=scaled,
+                                            **kw)
+    if impl == "ref":
+        return _fused.fused_flash_ref(q, k, v, fmt=fmt, scaled=scaled, **kw)
+    if impl == "scan":
+        return _fused.fused_flash_scan(q, k, v, fmt=fmt, scaled=scaled, **kw)
     raise ValueError(f"unknown impl {impl!r}")
 
 

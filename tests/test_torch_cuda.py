@@ -11,7 +11,10 @@ and K3 (fma_emu) exactly equal to their plain versions, since the kernel and
 the plain version's per-block product (cuBLAS, TF32 off) both sum each
 128-deep partial dot with f32 FMAs in k order; K5 (ssm_scan_quantized) and
 K6 (ssm_scan) bitwise, since both sides round every op of the recurrence
-and the readout to f32 in the same order (NaN equal to NaN).
+and the readout to f32 in the same order (NaN equal to NaN); K4
+(fused_flash_attention) bitwise against fused_flash_ref, which sums s, l
+and pv in the kernel's fixed order with one rounded multiply and one
+rounded add per term (NaN equal to NaN).
 """
 import numpy as np
 import pytest
@@ -19,8 +22,9 @@ import torch
 
 from repro_torch.core import formats as tf
 from repro_torch.kernels.fma_emu import fma_emu_matmul
-from repro_torch.kernels.fused import (fused_qmm, fused_qmm_ref,
-                                       ssm_scan_quantized,
+from repro_torch.kernels.fused import (fused_flash_attention,
+                                       fused_flash_ref, fused_qmm,
+                                       fused_qmm_ref, ssm_scan_quantized,
                                        ssm_scan_quantized_ref)
 from repro_torch.kernels.quantize_kernel import quantize_nd
 from repro_torch.kernels.ref import fma_emu_matmul_ref
@@ -217,3 +221,120 @@ def test_ssm_lm_on_card_launches_k1_once(card):
     got, _ = gpu.apply(to(params), toks.to(card), policy=pol)
     assert fused_qmm.launches - before == 1
     assert (got.cpu() - want).abs().max() <= 4 * 2.0 ** -8 * want.abs().max()
+
+
+def _flash_operands(card, q_shape, kv_shape, seed, dtype=torch.float32,
+                    specials=True):
+    """q, k, v normal; with ``specials``, f32 subnormals and signed zeros
+    planted in many places and one each of NaN, +inf and -inf in q, k and
+    v."""
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    q = torch.randn(q_shape, generator=g, device=card)
+    k = torch.randn(kv_shape, generator=g, device=card)
+    v = torch.randn(kv_shape, generator=g, device=card)
+    if specials:
+        quiet = torch.tensor([1e-40, -3e-39, 0.0, -0.0], device=card)
+        loud = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                            device=card)
+        for t in (q, k, v):
+            flat = t.view(-1)
+            idx = torch.randint(0, flat.numel(), (32,), generator=g,
+                                device=card)
+            flat[idx] = quiet[torch.arange(32, device=card) % 4]
+            idx = torch.randint(0, flat.numel(), (3,), generator=g,
+                                device=card)
+            flat[idx] = loud
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+#: (q shape, kv shape, keywords): GQA groups of 1, 2 and 8, ragged lengths,
+#: Sq != Sk with q_offset, kv_len < Sk, a window, a decode shape (Sq = 1)
+FLASH_CASES = {
+    "gqa2-ragged": ((2, 45, 4), (2, 45, 2), {}),
+    "gqa8-offset": ((1, 37, 8), (1, 53, 1), dict(q_offset=16)),
+    "g1-window-kvlen": ((2, 50, 2), (2, 50, 2), dict(window=8, kv_len=41)),
+    "decode": ((3, 1, 4), (3, 70, 2), dict(q_offset=69, kv_len=70)),
+}
+FLASH_FMTS = ((None, False, None), ("bf16", False, None),
+              ("fp8_e4m3", True, None), ("fp8_e5m2", True, "bf16"))
+
+
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_bitwise(card, case, D, block):
+    (B, Sq, Hq), (_, Sk, Hkv), kw = FLASH_CASES[case]
+    q, k, v = _flash_operands(card, (B, Sq, Hq, D), (B, Sk, Hkv, D), 7)
+    for fmt, scaled, out_fmt in FLASH_FMTS:
+        fmt = tf.REGISTRY[fmt] if fmt else None
+        out_fmt = tf.REGISTRY[out_fmt] if out_fmt else None
+        args = dict(fmt=fmt, scaled=scaled, out_fmt=out_fmt, block_q=block,
+                    block_k=block, **kw)
+        before = fused_flash_attention.launches
+        got = fused_flash_attention(q, k, v, **args)
+        assert fused_flash_attention.launches == before + 1
+        _exact(got, fused_flash_ref(q, k, v, **args))
+
+
+def test_flash_kernel_bitwise_bf16_operands(card):
+    """bf16 q, k and v (as the model hands them) are read as they are and
+    the output is bf16, equal to the plain version's cast."""
+    q, k, v = _flash_operands(card, (2, 130, 8, 64), (2, 130, 2, 64), 8,
+                              dtype=torch.bfloat16, specials=False)
+    for fmt in (None, tf.BF16, tf.FP8_E4M3):
+        got = fused_flash_attention(q, k, v, fmt=fmt)
+        assert got.dtype == torch.bfloat16
+        _exact(got, fused_flash_ref(q, k, v, fmt=fmt))
+
+
+@pytest.mark.parametrize("dtypes", [
+    (torch.float16,) * 3, (torch.bfloat16, torch.float32, torch.float32),
+    (torch.float64,) * 3], ids=["fp16", "bf16-q-f32-kv", "f64"])
+def test_flash_kernel_returns_q_dtype(card, dtypes):
+    """Operands other than all-bf16 are widened to f32 for the kernel; the
+    output comes back in q's dtype, equal to the plain version's."""
+    q, k, v = _flash_operands(card, (2, 45, 4, 64), (2, 45, 2, 64), 10,
+                              specials=False)
+    q, k, v = (t.to(dt) for t, dt in zip((q, k, v), dtypes))
+    for fmt in (None, tf.BF16):
+        got = fused_flash_attention(q, k, v, fmt=fmt)
+        want = fused_flash_ref(q, k, v, fmt=fmt)
+        assert got.dtype == want.dtype == q.dtype
+        _exact(got, want)
+
+
+def test_flash_kernel_controls(card):
+    """The bitwise check catches fp8 without rounding p, scaled=False where
+    a tile's max lies above 240 (unscaled rounding gives inf), and a window
+    ignored."""
+    q, k, v = _flash_operands(card, (2, 96, 4, 64), (2, 96, 2, 64), 9,
+                              specials=False)
+    e4 = tf.FP8_E4M3
+    # fp8 with q, k and v rounded but p not: the unscaled rounding is
+    # elementwise, so it is the unrounded schedule on rounded operands
+    no_p = fused_flash_ref(tf.quantize(q, e4), tf.quantize(k, e4),
+                           tf.quantize(v, e4), fmt=None)
+    got = fused_flash_attention(q, k, v, fmt=e4, scaled=False)
+    assert not ((got == no_p) | (got.isnan() & no_p.isnan())).all()
+    # non-causal, so no score is masked (a masked score far above the row
+    # max gives inf * 0 = NaN in both versions, by the reference's rule)
+    big = q * 300.0
+    got = fused_flash_attention(big, k, v, fmt=e4, scaled=True, causal=False)
+    assert torch.isfinite(got).all()
+    unscaled = fused_flash_ref(big, k, v, fmt=e4, scaled=False,
+                               causal=False)
+    assert not ((got == unscaled) | (got.isnan() & unscaled.isnan())).all()
+    got = fused_flash_attention(q, k, v, fmt=None, window=8, block_q=16,
+                                block_k=16)
+    no_window = fused_flash_ref(q, k, v, fmt=None, block_q=16, block_k=16)
+    assert not (got == no_window).all()
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros(1, 8, 2, 160, device=card)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fused_flash_attention(q, q, q, fmt=None)
+    q = torch.zeros(1, 300, 2, 64, device=card)
+    with pytest.raises(ValueError, match="blocks up to 128"):
+        fused_flash_attention(q, q, q, fmt=None, block_q=256)

@@ -53,14 +53,19 @@ def test_slice_modules_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("kernels/ssm_scan.py", "kernels/fused.py", "models/ssm.py",
                 "models/model.py", "numerics/emulate.py",
-                "models/numerics.py", "serve/engine.py"):
+                "models/numerics.py", "serve/engine.py",
+                "benchgen/__init__.py", "benchgen/spec.py",
+                "benchgen/machine.py", "benchgen/bench.py",
+                "roofline/__init__.py", "roofline/analysis.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.models import LM
     from repro_torch.models.convert import params_from_jax
-    from repro_torch.numerics import (emulated_matmul, emulated_ssm_scan,
+    from repro_torch import benchgen
+    from repro_torch.numerics import (emulated_flash_attention,
+                                      emulated_matmul, emulated_ssm_scan,
                                       quantize_tensor)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tbase.get_config("tinyllama-1.1b").reduced()
@@ -68,11 +73,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     a = np.ones((4, 8), np.float32)
     ab, c = np.ones((1, 64, 8, 4), np.float32), np.ones((1, 64, 4),
                                                          np.float32)
+    spec = benchgen.KernelSpec("quantize", "bf16", (16, 128))
     calls = [lambda: LM(cfg),
              lambda: LM(ssm_cfg),
              lambda: emulated_matmul(a, a.T, fmt="bf16"),
              lambda: emulated_ssm_scan(ab, ab, c, fmt="bf16"),
              lambda: quantize_tensor(a, fmt="bf16"),
+             lambda: emulated_flash_attention(ab, ab, ab, fmt="bf16"),
+             lambda: benchgen.calibrate(n=1),
+             lambda: benchgen.make_inputs(spec),
+             lambda: benchgen.build(spec),
+             lambda: benchgen.measure(spec),
+             lambda: benchgen.validate([spec], benchgen.paper_machine()),
              lambda: params_from_jax({}, cfg)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -102,9 +114,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                  lambda: fma_emu_matmul(meta, b.to("meta"), fmt=tf.BF16),
                  lambda: quantize_nd(meta, fmt=tf.BF16),
                  lambda: ssm_scan(ab, ab, c),
-                 lambda: tfused.ssm_scan_quantized(ab, ab, c, fmt=tf.BF16)):
+                 lambda: tfused.ssm_scan_quantized(ab, ab, c, fmt=tf.BF16),
+                 lambda: tfused.fused_flash_attention(ab, ab, ab,
+                                                      fmt=tf.BF16)):
         with pytest.raises(ValueError, match="cpu or cuda"):
             call()
+    # shapes the flash kernel does not take, on every device
+    q = torch.ones(1, 16, 4, 8)
+    for k in (torch.ones(1, 16, 4, 4), torch.ones(2, 16, 4, 8),
+              torch.ones(1, 16, 4)):
+        with pytest.raises(ValueError, match="bad flash shapes"):
+            tfused.fused_flash_attention(q, k, k, fmt=None)
+    with pytest.raises(ValueError, match="Hq=4 not a multiple of Hkv=3"):
+        tfused.fused_flash_attention(q, q[:, :, :3], q[:, :, :3], fmt=None)
+    with pytest.raises(ValueError, match="operands on"):
+        tfused.fused_flash_attention(q, q, q.to("meta"), fmt=None)
     # shapes the scan kernels do not take
     ab_cpu, c_cpu = torch.ones(1, 64, 8, 4), torch.ones(1, 64, 4)
     for bad in ((ab_cpu, ab_cpu[..., :2], c_cpu), (ab_cpu, ab_cpu, c_cpu.mT),

@@ -9,15 +9,19 @@ toolkit:
 Phases, each of which fails the run (non-zero exit, no result line):
 
   1. the card, the torch/CUDA versions, and the build of every kernel from
-     ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
+     ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel), with
+     ``ptxas`` registers and spills of the K1/K3 and K4 kernels;
   2. every kernel against its plain PyTorch version on the card: K2
      (quantize) bitwise on 4M elements with specials and f32 subnormals, K1
      (fused_qmm) and K3 (fma_emu) exactly equal to their plain versions on
      ragged shapes and on tinyllama-1.1b's shapes (both sum each 128-deep
-     partial dot with f32 FMAs in k order), with two controls that the check
-     must catch (a cascade that skips the accumulator rounding, fp8 without
-     operand rounding), and the emulated LM on a small config against the
-     same LM on the CPU;
+     partial dot with f32 FMAs in k order), each case with the schedule
+     ``plan_qmm`` picked for it (all three are reached), with four controls
+     that the check must catch (a cascade that skips the accumulator
+     rounding on each schedule, at M = 512, 4 and 1024; fp8 without operand
+     rounding); K1/K3's rounding (the multiplication form) against
+     K2's on all 2**32 f32 patterns for every format, zero mismatches; and
+     the emulated LM on a small config against the same LM on the CPU;
      K5 (ssm_scan_quantized) and K6 (ssm_scan) bitwise against theirs on
      ragged shapes, every operand format, an out_fmt, f32 subnormals, +-inf
      and NaN, with two controls the check must catch (a recurrence
@@ -38,8 +42,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      through K1, 155 launches per forward), ``quantize_tensor`` rounds the
      embedding table (K2) and ``emulated_matmul(impl='pallas')`` runs a
      projection (K3); then each of K1-K3's time at the model's shapes
-     beside its bound, its plain version's time and the library call's, and
-     a profile of one decode step;
+     (each K1 call with its plan; K1, K3 and the library call also timed
+     for device work alone) beside its bound, its plain version's time and
+     the library call's, and a profile of one decode step;
   3a. the attention path at tinyllama-1.1b's full width, counters set to 0
      just before: layer 0's q, k and v after RoPE from a 2 x 2048 prefill
      (``_qkv`` on the normed embeddings) through ``policy_flash_attention``
@@ -230,14 +235,23 @@ def bound_of(t_bytes, t_ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_ms(fn, flush, reps=10, warm=2):
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events), with
-    the L2 cache flushed before each run."""
+# a spin of this many cycles (~0.2 ms) on the card ahead of a run timed
+# for its device work alone
+SPIN_CYCLES = 400_000
+
+
+def time_ms(fn, flush, reps=10, warm=2, spin=False):
+    """Median time of ``fn`` over ``reps`` runs between CUDA events, with
+    the L2 cache flushed before each run.  It includes the host's dispatch
+    where that outlasts the flush; with ``spin`` a sleep kernel holds the
+    card while the host enqueues the run, so only device work is timed."""
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -271,21 +285,37 @@ def card_and_build():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": per_source,
           "libraries": [_build._lib_path(n).name for n in _build.SOURCES]})
-    # what ptxas -v reported for the K4 kernels: registers and spill bytes
-    # of each (head-dim bound, operand type) instantiation, in log order
-    log = _build._lib_path("flash_attn").with_suffix(".log")
-    if log.exists():
-        text = log.read_text()
-        names = re.findall(r"Compiling entry function "
-                           r"'\w*?flash_kernelILi(\d+)E(\w+?)E", text)
-        regs = re.findall(r"Used (\d+) registers", text)
-        spills = re.findall(r"(\d+) bytes spill stores", text)
-        operands = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
-        emit({"phase": "ptxas", "source": "flash_attn.cu", "kernels": [
-            {"head_dim_bound": int(d), "operands": operands.get(t, t),
-             "registers": int(r), "spill_store_bytes": int(sp)}
-            for (d, t), r, sp in zip(names, regs, spills)]})
+    # what ptxas -v reported for the K1/K3 and K4 kernels
+    for name, source in (("qmm", "qmm.cu"), ("flash_attn", "flash_attn.cu")):
+        log = _build._lib_path(name).with_suffix(".log")
+        if log.exists():
+            emit({"phase": "ptxas", "source": source,
+                  "kernels": ptxas_entries(log.read_text())})
     return smi
+
+
+def ptxas_entries(text):
+    """Registers and spill-store bytes of each entry function in a
+    ``ptxas -v`` log, with the kernel's name and its template arguments
+    (integers; f32 or bf16 for types; a back-reference ``S<n>_`` in this
+    repo's kernels only ever repeats bf16, the one named type)."""
+    types = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    out = []
+    for block in text.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        m = re.search(r"([a-z][a-z_]*_kernel)(?:I(\w*?)EE?v)?", mangled)
+        if not m:
+            continue
+        args = [int(lit) if lit else types.get(t, "bf16") for lit, t in
+                re.findall(r"Li(\d+)E|(13__nv_bfloat16|S\d*_|f)",
+                           m.group(2) or "")]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        out.append({"kernel": m.group(1), "template": args,
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill
+                    else None})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +345,8 @@ def check_kernels(dev):
     from repro_torch.core import formats as F
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.fma_emu import fma_emu_matmul
-    from repro_torch.kernels.fused import fused_qmm, fused_qmm_ref
+    from repro_torch.kernels.fused import (fused_qmm, fused_qmm_ref,
+                                           plan_qmm, sm_count)
     from repro_torch.kernels.quantize_kernel import quantize_nd
     from repro_torch.kernels.ref import fma_emu_matmul_ref
     gen = torch.Generator(device=dev)
@@ -341,7 +372,10 @@ def check_kernels(dev):
     # K1 and K3 exactly equal to their plain versions: the kernel and the
     # plain version's per-block product (cuBLAS, TF32 off) both sum each
     # 128-deep partial dot with f32 FMAs in k order, and every rounding and
-    # epilogue op is the same, so any difference is a fault
+    # epilogue op is the same, so any difference is a fault.  The cases
+    # reach every schedule of plan_qmm: split_rows at M = 4, split_tile on
+    # the ragged shapes and on every projection at M = 512, whole on wq at
+    # M = 1024 (a 4 x 256-token prefill)
     cfg = get_config(ARCH)
     cases = [((61, 300, 37), False, False), ((2, 61, 300, 37), False, False)]
     for m in (512, 4):
@@ -349,15 +383,20 @@ def check_kernels(dev):
             if name in ("wv", "w_up"):
                 continue  # the same (K, N) as wk and w_gate
             cases.append(((m, k, nn), True, name == "unembed"))
+    cases.append(((1024, *model_shapes(cfg)["wq"]), True, False))
     fmts = (F.BF16, F.FP16, F.FP8_E4M3)
     styles = ("fused", "cascade", "cascade_fwd")
-    n_checks = 0
+    n_checks, plans = 0, []
+    sms = sm_count(dev)
     for shape, bf16, unembed in cases:
         batched = len(shape) == 4
         m, k, nn = shape[-3:]
         a, b = qmm_operands(gen, m, k, nn, dev, unembed, bf16)
         if batched:
             a = torch.randn(shape[0], m, k, generator=gen, device=dev)
+        plans.append(dict(shape=list(shape), b_strides=list(b.stride()),
+                          **vars(plan_qmm(shape[0] if batched else 1, m, nn,
+                                          k, sms))))
         for fmt in fmts:
             for style in styles:
                 for scaled in (False, True):
@@ -382,11 +421,13 @@ def check_kernels(dev):
                     n_checks += 1
     torch.cuda.synchronize()
 
-    # controls at the main path's prefill shape: the check must catch a
+    # controls at the main path's prefill shape (split_tile) and decode
+    # shape (split_rows), and at 1024 rows (whole): the check must catch a
     # cascade that skips the accumulator rounding, and fp8 without operand
     # rounding (the plain version at f32, where rounding is the identity)
     k, nn = model_shapes(cfg)["wq"]
-    a, b = qmm_operands(gen, 512, k, nn, dev, False)
+    a1024, b = qmm_operands(gen, 1024, k, nn, dev, False)
+    a, a4 = a1024[:512].contiguous(), a1024[:4].contiguous()
     controls = {
         "cascade_without_acc_rounding": mismatches(
             fused_qmm(a, b, fmt=F.BF16, style="cascade"),
@@ -395,18 +436,58 @@ def check_kernels(dev):
         "fp8_without_operand_rounding": mismatches(
             fused_qmm(a, b, fmt=F.FP8_E4M3),
             fused_qmm_ref(a, b, fmt=F.FP32, bm=128, bn=128)),
+        "split_rows_cascade_without_acc_rounding": mismatches(
+            fused_qmm(a4, b, fmt=F.BF16, style="cascade"),
+            fused_qmm_ref(a4, b, fmt=F.BF16, style="cascade_fwd", bm=128,
+                          bn=128)),
+        "whole_cascade_without_acc_rounding": mismatches(
+            fused_qmm(a1024, b, fmt=F.BF16, style="cascade"),
+            fused_qmm_ref(a1024, b, fmt=F.BF16, style="cascade_fwd",
+                          bm=128, bn=128)),
     }
     for name, bad in controls.items():
         check(bad > 0, f"control {name}: the check did not catch it")
     emit({"phase": "check", "kernel": "fused_qmm+fma_emu_matmul",
           "checks": n_checks, "shapes": [c[0] for c in cases],
+          "plans": plans, "sm_count": sms,
+          "schedules": sorted({pl["schedule"] for pl in plans}),
           "formats": [f.name for f in fmts], "styles": list(styles),
           "tolerance": "exact: every entry equal to the plain version's",
           "max_abs_err": {k: errs[k] for k in ("fused_qmm",
                                                "fma_emu_matmul")},
           "controls_entries_differing": controls,
-          "control_entries": 512 * nn})
+          "control_entries": {"split_tile": 512 * nn, "whole": 1024 * nn,
+                              "split_rows": 4 * nn}})
+    check(len({pl["schedule"] for pl in plans}) == 3,
+          "the K1 checks did not reach every schedule")
     return errs
+
+
+def check_rounding(dev):
+    """The rounding K1/K3 run, quantize_rne_mul, against K2's
+    quantize_rne on all 2**32 f32 bit patterns, on the card: zero bitwise
+    mismatches for every format; and for the formats that hold every bf16
+    value (where K1 skips rounding an unscaled bf16 operand) zero finite
+    bf16 patterns moved by the rounding."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels.fused import rounding_mismatches
+    rows = {}
+    t0 = time.perf_counter()
+    for fmt in F.REGISTRY.values():
+        if fmt.exp_bits > 8 or fmt.man_bits >= 23:
+            continue
+        mul_vs_div, bf16_moved = rounding_mismatches(fmt, dev)
+        holds_bf16 = fmt.exp_bits == 8 and fmt.man_bits >= 7
+        check(mul_vs_div == 0, f"{fmt.name}: quantize_rne_mul differs from "
+              f"quantize_rne on {mul_vs_div} f32 patterns")
+        check((bf16_moved == 0) == holds_bf16, f"{fmt.name}: rounding moves "
+              f"{bf16_moved} finite bf16 values (holds bf16: {holds_bf16})")
+        rows[fmt.name] = dict(mul_vs_div_mismatches=mul_vs_div,
+                              bf16_values_moved=bf16_moved,
+                              holds_bf16=holds_bf16)
+    emit({"phase": "check", "what": "quantize_rne_mul vs quantize_rne, all "
+          "2**32 f32 patterns", "formats": rows,
+          "seconds": time.perf_counter() - t0})
 
 
 def check_small_lm(dev):
@@ -1176,7 +1257,8 @@ def check_ssm_unembed(model, params, toks, last):
 def time_kernels(dev, cfg, launches, errs):
     from repro_torch.core import formats as F
     from repro_torch.kernels.fma_emu import fma_emu_matmul
-    from repro_torch.kernels.fused import fused_qmm, fused_qmm_ref
+    from repro_torch.kernels.fused import (fused_qmm, fused_qmm_ref,
+                                           plan_qmm, sm_count)
     from repro_torch.kernels.quantize_kernel import quantize_nd
     from repro_torch.kernels.ref import fma_emu_matmul_ref
     gen = torch.Generator(device=dev)
@@ -1184,8 +1266,9 @@ def time_kernels(dev, cfg, launches, errs):
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
     shapes = model_shapes(cfg)
     rows = []
-    totals = {m: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                      bytes_ms=0.0, ops_ms=0.0) for m in (4, 512)}
+    totals = {m: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                      library_device_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                      ops_ms=0.0) for m in (4, 512)}
     for m in (4, 512):
         for name, (k, n) in shapes.items():
             # a forward runs each projection once per layer at M rows; the
@@ -1193,26 +1276,30 @@ def time_kernels(dev, cfg, launches, errs):
             reps = cfg.n_layers if name != "unembed" else int(m == 4)
             a, b = qmm_operands(gen, m, k, n, dev, name == "unembed")
             fmt = F.BF16
-            ms = time_ms(lambda: fused_qmm(a, b, fmt=fmt), flush)
-            plain = time_ms(lambda: fused_qmm_ref(a, b, fmt=fmt, bm=128,
-                                                  bn=128), flush, reps=3)
+            def k1():
+                return fused_qmm(a, b, fmt=fmt)
+
             # bf16 operands are exact in bf16 and the fused style rounds no
             # partial sum, so K1 here is an f32 product of the widened
             # operands: one library call computes it
-            library = time_ms(lambda: torch.matmul(a.float(), b.float()),
-                              flush)
+            def library():
+                return torch.matmul(a.float(), b.float())
+
+            row = dict(ms=time_ms(k1, flush),
+                       device_ms=time_ms(k1, flush, spin=True),
+                       plain_ms=time_ms(lambda: fused_qmm_ref(
+                           a, b, fmt=fmt, bm=128, bn=128), flush, reps=3),
+                       library_ms=time_ms(library, flush),
+                       library_device_ms=time_ms(library, flush, spin=True))
             t_bytes, t_ops = qmm_bound(m, k, n, 2, 2, fmt)
             bound, by = bound_of(t_bytes, t_ops)
             rows.append(dict(m=m, k=k, n=n, weight=name, per_forward=reps,
-                             ms=ms, plain_ms=plain, library_ms=library,
-                             bound_ms=bound, bound_by=by))
+                             **row, bound_ms=bound, bound_by=by,
+                             plan=vars(plan_qmm(1, m, n, k, sm_count(dev)))))
             t = totals[m]
-            t["ms"] += reps * ms
-            t["plain_ms"] += reps * plain
-            t["library_ms"] += reps * library
-            t["bound_ms"] += reps * bound
-            t["bytes_ms"] += reps * t_bytes
-            t["ops_ms"] += reps * t_ops
+            for key, v in dict(row, bound_ms=bound, bytes_ms=t_bytes,
+                               ops_ms=t_ops).items():
+                t[key] += reps * v
     # the styles and fp8 at the largest decode projection
     k, n = shapes["w_gate"]
     a, b = qmm_operands(gen, 4, k, n, dev, False)
@@ -1225,14 +1312,22 @@ def time_kernels(dev, cfg, launches, errs):
                                  style=style, scaled=scaled, ms=ms))
     emit({"phase": "times", "kernel": "fused_qmm", "fmt": "bf16",
           "style": "fused", "unit": "ms per launch, median of 10, L2 "
-          "flushed", "library_call": LIBRARY_K1, "rows": rows,
-          "per_forward": totals})
+          "flushed; device_ms with a spin kernel ahead of each run",
+          "library_call": LIBRARY_K1, "rows": rows, "per_forward": totals,
+          "per_forward_over_library": {m: t["ms"] / t["library_ms"]
+                                       for m, t in totals.items()},
+          "per_forward_over_library_device": {
+              m: t["device_ms"] / t["library_device_ms"]
+              for m, t in totals.items()}})
 
     # K3 at the shape the main path ran it: (512, 2048) @ (2048, 2048)
     k, n = shapes["wq"]
     a, b = qmm_operands(gen, 512, k, n, dev, False)
-    k3 = dict(ms=time_ms(lambda: fma_emu_matmul(a, b, fmt=F.BF16,
-                                                style="cascade"), flush),
+    def k3_call():
+        return fma_emu_matmul(a, b, fmt=F.BF16, style="cascade")
+
+    k3 = dict(ms=time_ms(k3_call, flush),
+              device_ms=time_ms(k3_call, flush, spin=True),
               plain_ms=time_ms(lambda: fma_emu_matmul_ref(
                   a, b, fmt=F.BF16, style="cascade"), flush, reps=3))
     k3["bound_ms"], k3["bound_by"] = bound_of(*qmm_bound(512, k, n, 2, 2,
@@ -1246,7 +1341,8 @@ def time_kernels(dev, cfg, launches, errs):
               library_ms=time_ms(lambda: x.to(torch.bfloat16).float(), flush))
     k2["bound_ms"] = 1e3 * numel * 8 / HBM_BYTES_PER_S
     emit({"phase": "times", "kernel": "fma_emu_matmul", "shape":
-          [512, k, n], "fmt": "bf16", "style": "cascade", **k3})
+          [512, k, n], "fmt": "bf16", "style": "cascade",
+          "plan": vars(plan_qmm(1, 512, n, k, sm_count(dev))), **k3})
     emit({"phase": "times", "kernel": "quantize_nd", "elements": numel,
           "fmt": "bf16", **k2, "library_call": "x.to(torch.bfloat16).float()"})
 
@@ -1256,9 +1352,12 @@ def time_kernels(dev, cfg, launches, errs):
              source="src/repro_torch/csrc/qmm.cu",
              replaces="src/repro/kernels/fused.py:140",
              launches=launches["fused_qmm"], max_abs_err=errs["fused_qmm"],
-             ms=dec["ms"], plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
+             ms=dec["ms"], device_ms=dec["device_ms"],
+             plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
              bound_by=bound_of(dec["bytes_ms"], dec["ops_ms"])[1],
-             library_ms=dec["library_ms"], library_call=LIBRARY_K1,
+             library_ms=dec["library_ms"],
+             library_device_ms=dec["library_device_ms"],
+             library_call=LIBRARY_K1,
              work=f"one decode forward of {ARCH}, batch 4: "
                   f"{7 * cfg.n_layers + 1} launches, bf16 fused"),
         dict(name="quantize_nd", route="cuda",
@@ -1274,8 +1373,8 @@ def time_kernels(dev, cfg, launches, errs):
              replaces="src/repro/kernels/fma_emu.py:72",
              launches=launches["fma_emu_matmul"],
              max_abs_err=errs["fma_emu_matmul"], ms=k3["ms"],
-             plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
-             bound_by=k3["bound_by"], library_ms=None,
+             device_ms=k3["device_ms"], plain_ms=k3["plain_ms"],
+             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"], library_ms=None,
              library_call=NO_LIBRARY_CALL,
              work=f"(512, {k}) @ ({k}, {n}) bf16 cascade"),
     ]
@@ -1403,6 +1502,7 @@ def main():
 
     smi = card_and_build()
     errs = check_kernels(dev)
+    check_rounding(dev)
     errs.update(check_scan_kernels(dev))
     errs.update(check_flash_kernels(dev))
     check_small_lm(dev)

@@ -12,6 +12,13 @@
 // result is bitwise that of the plain PyTorch version
 // (repro_torch/core/formats.py) on every input, f32 subnormals included.
 // Build without --use_fast_math and without -ftz=true.
+//
+// quantize_rne_mul, which K1/K3 use, is the same rounding with each IEEE
+// division x / 2**s replaced by the multiplication x * 2**-s: both are the
+// correctly rounded value of one real number, so the two functions agree
+// bitwise on every f32 input, subnormal results included (the card check
+// enumerates all 2**32 patterns), and a multiplication costs one instruction
+// where __fdiv_rn costs a short subroutine.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,6 +82,32 @@ __device__ __forceinline__ float quantize_rne(float x, const QFmt f) {
   float scale_hi = pow2_from_exp(half_hi);
   float q = rintf(__fdiv_rn(__fdiv_rn(x, scale_lo), scale_hi));
   float y = __fmul_rn(__fmul_rn(q, scale_lo), scale_hi);
+  if (fabsf(y) > f.max_finite) y = copysignf(INFINITY, y);
+  if (!isfinite(x)) y = x;
+  if (x == 0.0f) y = x;
+  return y;
+}
+
+// 2**e as f32 for e in [-149, 127], exactly: below -126 from the subnormal
+// bit pattern, since pow2_from_exp builds only normal powers.
+__device__ __forceinline__ float pow2_exact(int e) {
+  return e >= -126 ? pow2_from_exp(e) : __uint_as_float(1u << (e + 149));
+}
+
+// quantize_rne with x * 2**-half_lo * 2**-half_hi in place of the two
+// divisions, in the same order: -half_lo lies in [-127, 126] (2**-127 is an
+// f32 subnormal, built exactly) and -half_hi in [0, 22].
+__device__ __forceinline__ float quantize_rne_mul(float x, const QFmt f) {
+  if (f.identity) return x;
+  int e = unbiased_exp_f32(x);
+  int q_exp = min(max(e, f.emin), f.emax);
+  int scale_exp = q_exp - f.man_bits;
+  int half_lo = min(max(scale_exp, -126), 127);
+  int half_hi = scale_exp - half_lo;
+  float q = rintf(__fmul_rn(__fmul_rn(x, pow2_exact(-half_lo)),
+                            pow2_exact(-half_hi)));
+  float y = __fmul_rn(__fmul_rn(q, pow2_from_exp(half_lo)),
+                      pow2_from_exp(half_hi));
   if (fabsf(y) > f.max_finite) y = copysignf(INFINITY, y);
   if (!isfinite(x)) y = x;
   if (x == 0.0f) y = x;

@@ -6,10 +6,15 @@ operands (``csrc/ssm_scan.cu``).
 Counterpart of ``repro.kernels.fused``.
 
 K1: the TPU kernel ran the grid (B, M/128, N/128, K/128) with the k axis
-sequential into a VMEM accumulator; the CUDA kernel gives each thread block
-one output tile and loops over the 128-deep k blocks inside it.
-``fused_qmm_ref`` is the plain version: a replay of the same tile schedule
-in PyTorch, which the CPU path runs and the card check compares against.
+sequential into a VMEM accumulator.  On the card ``plan_qmm`` picks one of
+three schedules: ``whole`` (one thread block per output tile loops over the
+128-deep k blocks and folds them in registers; prefill shapes whose tile
+grid fills the card), ``split_rows`` (M <= 16, decode: one thread block per
+column tile and k block) or ``split_tile`` (prefill shapes with a small
+tile grid); a split writes each k block's part to a workspace that a second
+kernel folds in k-block order.  ``fused_qmm_ref`` is the plain version: a
+replay of the same k-block schedule in PyTorch, which the CPU path runs and
+the card check compares against.
 Power-of-two scaling (``scaled=True``) is exact: the scale is built from
 exponent bits of the tile's largest magnitude, so rescaling adds no rounding
 of its own and a scaled product equals the unscaled one wherever the
@@ -29,6 +34,7 @@ rounded as they are read; ``ssm_scan_quantized_ref`` is its plain version.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -98,15 +104,132 @@ def fused_qmm_ref(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
     return out if batched else out[0]
 
 
+#: the planner's thresholds, set between readings of scripts/qmm_sweep.py
+#: on the H100 (PERF.md): the whole-k schedule runs where its tile blocks,
+#: TILE_BLOCKS_PER_SM to an SM (bf16 operands), keep at least this share of
+#: the slots of their waves busy (split_tile was faster at 0.48 and 0.67,
+#: whole at 0.89 and 0.97); split_rows narrows its column tile until the
+#: grid holds SPLIT_WAVES waves of the card's SMs (2 was the fastest bf16
+#: decode forward of 1, 2 and 4)
+WHOLE_MIN_FILL = 0.78
+TILE_BLOCKS_PER_SM = 2
+SPLIT_WAVES = 2.0
+#: the most rows the split_rows schedule takes (decode batches), and the
+#: rows of the tiled kernel's output tile
+SPLIT_ROWS_MAX_M = 16
+TILE_BM = 64
+_SCHEDULE_CODE = {"whole": 0, "split_rows": 1, "split_tile": 2}
+_GRID_YZ_MAX = 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class QmmPlan:
+    """How K1 runs one call on the card: the schedule, the output tile
+    (``bm`` rows by ``bn`` columns, each dividing the 128 x 128 logical
+    tile), the thread blocks of the main kernel, and the bytes of the f32
+    workspace (gk, B, M, N) of a split schedule (0 for ``whole``)."""
+
+    schedule: str
+    bm: int
+    bn: int
+    blocks: int
+    workspace_bytes: int
+
+
+def plan_qmm(nb: int, m: int, n: int, k: int, sm_count: int) -> QmmPlan:
+    """The schedule of one K1 call, (nb, m, k) @ (k, n), on a card with
+    ``sm_count`` SMs.
+
+    The whole k loop stays in one thread block when the grid of 64 x 128
+    output tiles keeps at least ``WHOLE_MIN_FILL`` of the slots of its
+    waves busy (or there is one k block at most): a last wave that is
+    mostly empty costs more than the split's workspace and fold.
+    Otherwise the k blocks run in parallel thread blocks and a fold
+    follows.  M <= 16 always splits (decode: a few rows,
+    every weight read once), with the widest column tile that still gives
+    ``SPLIT_WAVES`` waves.  Raises on shapes the kernels cannot take."""
+    if min(nb, m, n, sm_count) < 1 or k < 0:
+        raise ValueError(f"plan_qmm: bad shape nb={nb} m={m} n={n} k={k} "
+                         f"sm_count={sm_count}")
+    gk = -(-k // TILE)
+    if m <= SPLIT_ROWS_MAX_M and gk > 1:
+        for bn in (128, 64, 32, 16):
+            blocks = -(-n // bn) * gk * nb
+            if blocks >= SPLIT_WAVES * sm_count:
+                break
+        plan = QmmPlan("split_rows", m, bn, blocks, 4 * gk * nb * m * n)
+        if gk > _GRID_YZ_MAX or nb > _GRID_YZ_MAX:
+            raise ValueError(f"plan_qmm: k={k} or nb={nb} beyond the grid")
+        return plan
+    tiles = nb * -(-m // TILE_BM) * -(-n // TILE)
+    if gk <= 1 or tile_fill(tiles, sm_count) >= WHOLE_MIN_FILL:
+        plan = QmmPlan("whole", TILE_BM, TILE, tiles, 0)
+    else:
+        plan = QmmPlan("split_tile", TILE_BM, TILE, tiles * gk,
+                       4 * gk * nb * m * n)
+    grid_z = nb * (gk if plan.schedule == "split_tile" else 1)
+    if -(-m // plan.bm) > _GRID_YZ_MAX or grid_z > _GRID_YZ_MAX:
+        raise ValueError(f"plan_qmm: m={m}, nb={nb} or k={k} beyond the "
+                         f"grid")
+    return plan
+
+
+def tile_fill(tiles: int, sm_count: int) -> float:
+    """The share of thread-block slots that ``tiles`` blocks of the tiled
+    kernel keep busy over their waves, TILE_BLOCKS_PER_SM to an SM."""
+    slots = TILE_BLOCKS_PER_SM * sm_count
+    return tiles / (-(-tiles // slots) * slots)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The C entry point of K1 and K3, built and loaded at first use."""
     fn = _build.load("qmm").repro_fused_qmm
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, i, ll, ll, ll, p, i, ll, ll, p, i, i, i, i, i, i, i,
-                   i, i, i, p, p, p]
+    fn.argtypes = [p, i, ll, ll, p, i, ll, ll, p, i, i, i, i, i, i, i, i, i,
+                   i, p, p, i, i, i, i, p, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _rounding_entry():
+    """The test entry of ``csrc/qmm.cu`` that enumerates f32 patterns."""
+    fn = _build.load("qmm").repro_qmm_rounding_mismatches
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rounding_mismatches(fmt: FloatFormat, device) -> tuple[int, int]:
+    """Test entry of ``csrc/qmm.cu`` on a CUDA device: over all 2**32 f32
+    bit patterns, how many round differently (bitwise) through the kernels'
+    multiplication form than through the division form K2 runs; and over
+    the 2**16 bf16 patterns, how many finite ones the rounding moves (0
+    where ``fmt`` holds every bf16 value, which is why K1 skips rounding an
+    unscaled bf16 operand there)."""
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    _build.check(_rounding_entry()(
+        fmt.exp_bits, fmt.man_bits, counts.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream),
+        "rounding check kernel")
+    mul_vs_div, bf16_moved = counts.tolist()
+    return mul_vs_div, bf16_moved
+
+
+def _aligned16(t: torch.Tensor, strides) -> bool:
+    """16-byte copies fit: the base and the given strides (in elements) are
+    multiples of 16 bytes."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * size % 16 == 0
+                                          for s in strides)
 
 
 def check_operands(a: torch.Tensor, b: torch.Tensor, fmt: FloatFormat,
@@ -131,27 +254,39 @@ def check_operands(a: torch.Tensor, b: torch.Tensor, fmt: FloatFormat,
 def launch(a3: torch.Tensor, b: torch.Tensor, fmt: FloatFormat, style: str,
            out_fmt: FloatFormat | None, scaled: bool) -> torch.Tensor:
     """One launch of the device code on CUDA operands a3 (B, M, K) and b
-    (K, N), f32 (B, M, N) out.  The caller counts the launch."""
+    (K, N), f32 (B, M, N) out, on the schedule ``plan_qmm`` picks.  The
+    caller counts the launch."""
     check_operands(a3, b, fmt, style)
     nb, m, kdim = a3.shape
     n = b.shape[1]
+    plan = plan_qmm(nb, m, n, kdim, sm_count(a3.device))
     out = torch.empty((nb, m, n), dtype=torch.float32, device=a3.device)
+    gk = -(-kdim // TILE)
+    ws = None
+    if plan.schedule != "whole":
+        ws = torch.empty((gk, nb, m, n), dtype=torch.float32,
+                         device=a3.device)
     a_scale = b_scale = None
     if scaled:
-        gk = -(-kdim // TILE)
         a_scale = torch.empty((nb, -(-m // TILE), gk), dtype=torch.int32,
                               device=a3.device)
         b_scale = torch.empty((gk, -(-n // TILE)), dtype=torch.int32,
                               device=a3.device)
     out_exp, out_man = (out_fmt.exp_bits, out_fmt.man_bits) if out_fmt \
         else (0, 0)
+    b_lead = b.stride(1) if b.stride(0) == 1 and b.stride(1) != 1 \
+        else b.stride(0)
+    vec = _aligned16(a3, (a3.stride(0), a3.stride(1))) and \
+        _aligned16(b, (b_lead,))
     rc = _entry()(
         a3.data_ptr(), _DTYPE_CODE[a3.dtype], a3.stride(0), a3.stride(1),
-        a3.stride(2), b.data_ptr(), _DTYPE_CODE[b.dtype], b.stride(0),
-        b.stride(1), out.data_ptr(), nb, m, n, kdim, fmt.exp_bits,
-        fmt.man_bits, _STYLE_CODE[style], out_exp, out_man, int(scaled),
+        b.data_ptr(), _DTYPE_CODE[b.dtype], b.stride(0), b.stride(1),
+        out.data_ptr(), nb, m, n, kdim, fmt.exp_bits, fmt.man_bits,
+        _STYLE_CODE[style], out_exp, out_man, int(scaled),
         a_scale.data_ptr() if scaled else None,
         b_scale.data_ptr() if scaled else None,
+        _SCHEDULE_CODE[plan.schedule], plan.bm, plan.bn, int(vec),
+        ws.data_ptr() if ws is not None else None,
         torch.cuda.current_stream(a3.device).cuda_stream)
     _build.check(rc, "qmm kernel")
     return out
@@ -163,8 +298,9 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
     """(B?, M, K) @ (K, N) fully fused: quantize -> f32 dot -> dequant.
 
     CPU tensors take ``fused_qmm_ref`` at the kernel's 128 x 128 tiling; a
-    CUDA tensor launches the kernel (f32 or bf16 operands, b through its
-    strides) and counts the launch in ``fused_qmm.launches``."""
+    CUDA tensor launches the kernel on ``plan_qmm``'s schedule (f32 or bf16
+    operands, b through its strides) and counts the launch in
+    ``fused_qmm.launches``."""
     batched = a.dim() == 3
     a3 = a if batched else a[None]
     if a3.dim() != 3 or b.dim() != 2 or a3.shape[2] != b.shape[0]:

@@ -7,9 +7,11 @@ neither ``jax`` nor ``repro``, so it runs on the card's machine:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: K2 (quantize) bitwise, f32 subnormals included; K1 (fused_qmm)
-and K3 (fma_emu) exactly equal to their plain versions, since the kernel and
-the plain version's per-block product (cuBLAS, TF32 off) both sum each
-128-deep partial dot with f32 FMAs in k order; K5 (ssm_scan_quantized) and
+and K3 (fma_emu) exactly equal to their plain versions on every schedule of
+``plan_qmm``, since the kernel and the plain version's per-block product
+(cuBLAS, TF32 off) both sum each 128-deep partial dot with f32 FMAs in k
+order; their rounding (the multiplication form) bitwise K2's over all 2**32
+f32 patterns; K5 (ssm_scan_quantized) and
 K6 (ssm_scan) bitwise, since both sides round every op of the recurrence
 and the readout to f32 in the same order (NaN equal to NaN); K4
 (fused_flash_attention) bitwise against fused_flash_ref, which sums s, l
@@ -114,6 +116,142 @@ def test_fma_emu_kernel_vs_plain(card, style, fmt):
     got = fma_emu_matmul(a, b, fmt=fmt, style=style, out_fmt=tf.FP16)
     want = fma_emu_matmul_ref(a, b, fmt=fmt, style=style, out_fmt=tf.FP16)
     _exact(got, want)
+
+
+M_CASES = [1, 2, 3, 4, 5, 16, 17, 127, 128, 129, 512]
+# (sm count, WHOLE_MIN_FILL) that force each schedule on small shapes:
+# every tile grid counts as filling the card (whole k above 16 rows, the
+# widest column tile at decode on one SM), or none does (split_tile above
+# 16 rows, 16-wide column tiles at decode on a million SMs)
+SCHEDULES = {"whole": (1, 0.0), "split": (10 ** 6, 2.0)}
+# b layouts: a (K, N) weight or the unembed's table.T read in place, each
+# contiguous (K = 300 and N = 37 rows: plain loads) or a view of padded
+# rows (16-byte aligned: cp.async with the ragged edge zero-filled)
+LAYOUTS = ("kn", "kn_padded", "table_T", "table_T_padded")
+DTYPES = {"kn": (torch.float32, torch.float32),
+          "kn_padded": (torch.bfloat16, torch.bfloat16),
+          "table_T": (torch.float32, torch.bfloat16),
+          "table_T_padded": (torch.bfloat16, torch.float32)}
+
+
+def _qmm_operands(card, m, k, n, layout, seed, nb=None):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    ta, tb = DTYPES[layout]
+    pad = 8 if layout.endswith("padded") else 0
+    shape = (m, k + pad) if nb is None else (nb, m, k + pad)
+    a = torch.randn(shape, generator=g, device=card).to(ta)[..., :k]
+    if layout.startswith("table_T"):
+        b = (torch.randn(n, k + pad, generator=g, device=card) * 0.1) \
+            .to(tb)[:, :k].T
+    else:
+        b = (torch.randn(k, n + pad, generator=g, device=card) * 0.1) \
+            .to(tb)[:, :n]
+    return a, b
+
+
+def _plan(monkeypatch, schedule, a, b):
+    from repro_torch.kernels import fused as tfused
+    sms, fill = SCHEDULES[schedule]
+    monkeypatch.setattr(tfused, "sm_count", lambda device: sms)
+    monkeypatch.setattr(tfused, "WHOLE_MIN_FILL", fill)
+    nb, m = (1, a.shape[0]) if a.dim() == 2 else a.shape[:2]
+    return tfused.plan_qmm(nb, m, b.shape[1], b.shape[0], sms)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+@pytest.mark.parametrize("m", M_CASES)
+def test_fused_qmm_exact_on_both_schedules(card, monkeypatch, m, schedule,
+                                           layout):
+    """K1 and K3 exactly equal to their plain versions at ragged K = 300
+    and N = 37 on every schedule, format, style, scaled and out_fmt."""
+    a, b = _qmm_operands(card, m, 300, 37, layout, m)
+    plan = _plan(monkeypatch, schedule, a, b)
+    if m <= 16:
+        assert plan.schedule == "split_rows"
+    else:
+        assert plan.schedule == ("whole" if schedule == "whole"
+                                 else "split_tile")
+    for fmt in (tf.BF16, tf.FP16, tf.FP8_E4M3, tf.TF32):
+        for style in STYLES:
+            for scaled in (False, True):
+                out_fmt = tf.FP16 if scaled else None
+                before = fused_qmm.launches
+                got = fused_qmm(a, b, fmt=fmt, style=style, scaled=scaled,
+                                out_fmt=out_fmt)
+                assert fused_qmm.launches == before + 1
+                _exact(got, fused_qmm_ref(a, b, fmt=fmt, style=style,
+                                          scaled=scaled, out_fmt=out_fmt,
+                                          bm=128, bn=128))
+            got = fma_emu_matmul(a, b, fmt=fmt, style=style, out_fmt=tf.BF16)
+            _exact(got, fma_emu_matmul_ref(a, b, fmt=fmt, style=style,
+                                           out_fmt=tf.BF16))
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+@pytest.mark.parametrize("m", [1, 129])
+def test_fused_qmm_exact_batched_scaled(card, monkeypatch, m, schedule):
+    """nb = 3 slices of a, each with its own tile scales."""
+    a, b = _qmm_operands(card, m, 300, 37, "kn_padded", 7, nb=3)
+    a = a * torch.tensor([1.0, 2.0 ** 20, 2.0 ** -30], device=card
+                         ).to(a.dtype)[:, None, None]
+    _plan(monkeypatch, schedule, a, b)
+    for fmt in (tf.BF16, tf.FP8_E4M3):
+        for style in STYLES:
+            got = fused_qmm(a, b, fmt=fmt, style=style, scaled=True)
+            _exact(got, fused_qmm_ref(a, b, fmt=fmt, style=style,
+                                      scaled=True, bm=128, bn=128))
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+@pytest.mark.parametrize("m", [4, 129])
+def test_fused_qmm_exact_with_specials(card, monkeypatch, m, schedule):
+    """+-0, +-inf, NaN and f32 subnormals planted inside tiles of a (rows
+    0-1) and b (columns 0-4), f32 operands, every style and out_fmt; the
+    other outputs stay finite."""
+    a, b = _qmm_operands(card, m, 300, 37, "kn", 3)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan"), 1e-40, -3e-39, 1e-45],
+                           device=card)
+    r = np.random.default_rng(5)
+    for i in range(24):
+        a[i % 2, int(r.integers(300))] = special[i % len(special)]
+        b[int(r.integers(300)), i % 5] = special[i % len(special)]
+    b[:, 5] = 1e-40  # a column of subnormals only
+    a[2, 128:256] = -0.0  # a whole k block of negative zeros
+    _plan(monkeypatch, schedule, a, b)
+    finite = 0
+    for fmt in (tf.BF16, tf.FP8_E5M2):
+        for style in STYLES:
+            for scaled in (False, True):
+                for out_fmt in (None, tf.FP16, tf.FP8_E4M3):
+                    got = fused_qmm(a, b, fmt=fmt, style=style,
+                                    scaled=scaled, out_fmt=out_fmt)
+                    want = fused_qmm_ref(a, b, fmt=fmt, style=style,
+                                         scaled=scaled, out_fmt=out_fmt,
+                                         bm=128, bn=128)
+                    _exact(got, want)
+                    finite += int(torch.isfinite(want).sum())
+    # scaled fp8 on a tile that holds an inf rescales by 2**-114, so the
+    # tile's dequant factor overflows and every entry of it is NaN; the
+    # other settings keep most entries finite
+    assert finite > 0
+
+
+@pytest.mark.parametrize("fmt", ["tf32", "bf16", "fp16", "fp8_e4m3",
+                                 "fp8_e5m2"])
+def test_rounding_multiplication_form_exhaustive(card, fmt):
+    """All 2**32 f32 bit patterns through quantize_rne_mul (K1/K3) and
+    quantize_rne (K2) on the card: zero bitwise mismatches; and rounding a
+    finite bf16 value onto a format that holds every bf16 value moves
+    none of them (why K1 skips it for unscaled bf16 operands)."""
+    from repro_torch.kernels.fused import rounding_mismatches
+    fmt = tf.REGISTRY[fmt]
+    mul_vs_div, bf16_moved = rounding_mismatches(fmt, card)
+    assert mul_vs_div == 0
+    holds_bf16 = fmt.exp_bits == 8 and fmt.man_bits >= 7
+    assert (bf16_moved == 0) == holds_bf16
 
 
 def test_emulated_lm_on_card_matches_cpu(card):

@@ -285,12 +285,23 @@ def card_and_build():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": per_source,
           "libraries": [_build._lib_path(n).name for n in _build.SOURCES]})
-    # what ptxas -v reported for the K1/K3 and K4 kernels
+    # what ptxas -v reported for the K1/K3 and K4 kernels; a K4
+    # instantiation that spills fails the run
     for name, source in (("qmm", "qmm.cu"), ("flash_attn", "flash_attn.cu")):
         log = _build._lib_path(name).with_suffix(".log")
+        check(log.exists() or name != "flash_attn",
+              f"no ptxas log at {log}: K4's spills cannot be checked")
         if log.exists():
-            emit({"phase": "ptxas", "source": source,
-                  "kernels": ptxas_entries(log.read_text())})
+            entries = ptxas_entries(log.read_text())
+            emit({"phase": "ptxas", "source": source, "kernels": entries})
+            if name == "flash_attn":
+                flash = [e for e in entries if e["kernel"] == "flash_kernel"]
+                check(len(flash) == 6, f"ptxas reported {len(flash)} K4 "
+                      "instantiations, expected 6 (D 16/64/128 x f32/bf16)")
+                for e in flash:
+                    check(e["spill_store_bytes"] == 0 and
+                          e["spill_load_bytes"] == 0,
+                          f"K4 {e['template']} spills: {e}")
     return smi
 
 
@@ -311,9 +322,12 @@ def ptxas_entries(text):
                            m.group(2) or "")]
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
+        loads = re.search(r"(\d+) bytes spill loads", block)
         out.append({"kernel": m.group(1), "template": args,
                     "registers": int(regs.group(1)) if regs else None,
                     "spill_store_bytes": int(spill.group(1)) if spill
+                    else None,
+                    "spill_load_bytes": int(loads.group(1)) if loads
                     else None})
     return out
 
@@ -656,29 +670,35 @@ def check_flash_kernels(dev):
                                            fused_flash_ref)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
-    # (q (B, Sq, Hq), kv (B, Sk, Hkv), keywords): GQA groups of 2, 8 and 1,
-    # ragged lengths, q_offset with Sq != Sk, a window with kv_len < Sk, a
-    # decode shape
+    # (q (B, Sq, Hq), kv (B, Sk, Hkv), keywords): GQA groups of 2, 8, 1 and
+    # 4, ragged lengths, q_offset with Sq != Sk, a window with kv_len < Sk,
+    # a decode shape, and lengths above 128 so that unequal blocks stay
+    # unequal
     cases = [((2, 45, 4), (2, 45, 2), {}),
              ((1, 37, 8), (1, 53, 1), dict(q_offset=16)),
              ((2, 50, 2), (2, 50, 2), dict(window=8, kv_len=41)),
-             ((3, 1, 4), (3, 70, 2), dict(q_offset=69))]
+             ((3, 1, 4), (3, 70, 2), dict(q_offset=69)),
+             ((2, 200, 4), (2, 200, 2), {}),
+             ((1, 150, 8), (1, 290, 2), dict(q_offset=140, kv_len=281))]
+    # (block_q, block_k): the register tile's edges at 16, whole tiles, and
+    # unequal blocks
+    blocks = ((16, 16), (128, 128), (128, 64), (64, 128))
     fmts = ((None, False, None), (F.BF16, True, None),
             (F.FP8_E4M3, True, None), (F.FP8_E5M2, True, F.BF16))
     err, n_checks = 0.0, 0
     for D in (16, 64, 128):
-        for block in (16, 128):
+        for bq, bk in blocks:
             for (B, Sq, Hq), (_, Sk, Hkv), kw in cases:
                 q, k, v = flash_operands(gen, (B, Sq, Hq, D),
                                          (B, Sk, Hkv, D), dev)
                 for fmt, scaled, out_fmt in fmts:
                     args = dict(fmt=fmt, scaled=scaled, out_fmt=out_fmt,
-                                block_q=block, block_k=block, **kw)
+                                block_q=bq, block_k=bk, **kw)
                     got = fused_flash_attention(q, k, v, **args)
                     want = fused_flash_ref(q, k, v, **args)
                     bad = mismatches(got, want)
                     check(bad == 0, f"K4 q {(B, Sq, Hq, D)} kv "
-                          f"{(B, Sk, Hkv, D)} {kw} block {block} fmt="
+                          f"{(B, Sk, Hkv, D)} {kw} blocks {(bq, bk)} fmt="
                           f"{getattr(fmt, 'name', None)}: {bad} entries "
                           f"differ (max err {max_abs_err(got, want)})")
                     err = max(err, max_abs_err(got, want))
@@ -723,8 +743,8 @@ def check_flash_kernels(dev):
         check(bad > 0, f"control {name}: the check did not catch it")
     emit({"phase": "check", "kernel": "fused_flash_attention",
           "checks": n_checks, "head_dims": [16, 64, 128],
-          "blocks": [16, 128], "cases": [[list(c[0]), list(c[1]), c[2]]
-                                         for c in cases],
+          "blocks": [list(b) for b in blocks],
+          "cases": [[list(c[0]), list(c[1]), c[2]] for c in cases],
           "formats": ["none", "bf16 scaled", "fp8_e4m3 scaled",
                       "fp8_e5m2 scaled, out bf16"],
           "tolerance": "bitwise: every entry equal to the plain version's "

@@ -25,15 +25,21 @@
 //   and the flush writes acc / max(l, 1e-30), rounded to `out_fmt` if one is
 //   given, in the operands' type.  fmt = none runs the same schedule unrounded.
 // Every sum has a fixed order, the order of the plain PyTorch version
-// (kernels/fused.py::fused_flash_ref): s over d = 0..D-1, l over j = 0..bk-1,
-// pv over j = 0..bk-1, each left to right with the first term taken as it is,
-// and each term one rounded multiply and one rounded add (__fmul_rn and
-// __fadd_rn, so that nvcc cannot contract them into FMAs).  The row max is a
-// NaN-propagating max (torch.amax, torch.maximum); min and max below
-// propagate NaN as torch.clamp and jnp.minimum do.  expf and the IEEE
-// division are those torch's CUDA exp and division run.  So the kernel is
-// bitwise equal to the plain version on the card.  Build without
-// --use_fast_math and -ftz (the rounding needs IEEE division and subnormals).
+// (kernels/fused.py::fused_flash_ref): s over d = 0..D-1, l over j = 0..bk-1
+// of the unrounded p, pv over j = 0..bk-1 of the rounded p, each left to
+// right with the first term taken as it is, and each term one rounded
+// multiply and one rounded add (__fmul_rn and __fadd_rn, so that nvcc cannot
+// contract them into FMAs).  A chain starts from -0, which leaves its first
+// term as it is (-0 + x == x for every x, signed zeros and NaN included).
+// The row max is the one order-free part: it is reduced across threads in
+// any order, NaN-propagating (max_nan, as torch.amax and torch.maximum), and
+// the sign of a zero it picks cannot change a result bit (m - m_safe, and
+// s - m_safe for s = +-0, give values that exp maps alike).  min and max
+// below propagate NaN as torch.clamp and jnp.minimum do.  expf and the IEEE
+// division are those torch's CUDA exp and division run; the roundings use
+// quantize_rne_mul, bitwise equal to the division form over all 2**32
+// inputs.  So the kernel is bitwise equal to the plain version on the card.
+// Build without --use_fast_math and -ftz (the rounding needs subnormals).
 //
 // Bound on the H100: the two dot products, 2*B*Hq*Sq*Sk*D operations each
 // (masked pairs are computed, not skipped, as on the TPU), each at the
@@ -41,30 +47,45 @@
 // both at the format's rate (bf16 989 TFLOP/s; the repo's fp8_e4m3 grid lies
 // inside e4m3fn, 1979 TFLOP/s); with none, q k^T at the operands' type's
 // rate (989 for bf16) and p v at the f32 rate (67 TFLOP/s), since p is not
-// rounded; the bytes (q, k, v read once, out written once) are far below.  This kernel
-// runs the products as separate f32 multiplies and adds on the CUDA cores,
-// to keep the fixed IEEE f32 order, so it stays well above either bound.
+// rounded; the bytes (q, k, v read once, out written once) are far below.
+// Tinyllama-1.1b's layer 0 at 2 x 2048: 0.548 ms with no format.  The fixed
+// IEEE f32 order runs on the CUDA cores instead, one FMUL and one FADD per
+// term: 4*B*Hq*Sq*Sk*D = 68.7 G instructions at that shape, whose own
+// ceiling is 132 SMs x 128 lanes a clock (~1.98 GHz), ~2.05 ms.
 //
-// Design: the TPU grid (B, Hq, nq, nk) with the kv axis sequential in VMEM
-// becomes one thread block per (q block, head, batch) that loops over the kv
-// blocks.  One thread owns one q row: its f32 accumulator of D values is in
-// registers (the head dim is a template parameter, 16, 64 or 128, with
-// the columns above D zero).  Shared memory holds the rounded q tile (row
-// stride D+1, so the rows a warp reads lie in distinct banks), the rounded k
-// tile and then, in the same buffer, the rounded v tile of the current kv
-// block (rounding once per kv block gives the values the TPU schedule gets
-// by rounding once per block pair, since the scale depends only on the
-// tile), and the block's scores, then probabilities, one row per thread.  At
-// D = 128 and 128-row blocks that is 197,632 bytes, taken with the opt-in
-// dynamic shared memory attribute; it leaves one block of 4 warps per SM.
+// Design: one thread block of 256 threads (8 warps) per (q block, head,
+// batch) loops over the kv blocks; one block per SM, within the opt-in
+// shared memory.  The 128 x 128 score tile is cut into 8 x 8 register tiles
+// on a 16 x 16 thread grid: thread (tr, tc) owns rows tr*4 + {0..3} and
+// 64 + tr*4 + {0..3} and columns likewise from tc, so that the float4 reads
+// of 16 neighbouring threads cover 64 consecutive floats.  q and k are kept
+// rounded and d-major (D x 128) in shared memory: each d step reads 4 float4
+// and issues 64 FMUL + 64 FADD into 64 independent chains.  The softmax runs
+// in registers, the row max over the 16 threads of a row (one half-warp) by
+// shuffles.  The unrounded p goes to shared memory in place of the k tile
+// (row stride 132); one thread per row then runs the row's l chain while
+// the other four warps widen v, and all threads round p and v in place.
+// p v uses the same rows: each thread holds 8 rows x D/16 output columns,
+// chains over j reading p and v as float4, and keeps its accumulator in
+// registers across the kv blocks.  Rows beyond bq and
+// columns beyond bk are computed as zeros or left out of the max, l and p v;
+// padding rows within a block are zeros, as in the plain version.  k and v
+// are rounded once per kv block as they are staged, by multiplication.  For
+// D = 16 and 64 (D equal to the template's head dim) the next k and v tiles
+// are copied raw with cp.async into a staging tile while the current one is
+// used; at D = 128 they do not fit beside q, k/p and v, and are read from
+// device memory as they are staged.  Shared memory: 164 KB at D = 64 (f32),
+// 194 KB at D = 128.
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 #include "quantize.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // one thread per q row: bq <= 128
-constexpr int kMaxBlock = 128;  // bq and bk
+constexpr int kThreads = 256;  // 8 warps, a 16 x 16 grid of thread tiles
+constexpr int kBlk = 128;      // the largest bq and bk: tiles of 128 rows
+constexpr int kPld = kBlk + 4;  // row stride of the probability tile
 constexpr float kNegInf = -1.0e30f;
 constexpr float kHalfNegInf = -5.0e29f;
 
@@ -73,7 +94,23 @@ struct FlashArgs {
   QFmt f, fo;
   int round, scaled, round_out;
   int causal, window, kv_len, q_offset;
+  int async;  // k and v tiles copied ahead with cp.async
   float scale;
+};
+
+// Shared memory of one block, in this order: q (MAXD x 128, d-major), k
+// (d-major) and then p (128 x kPld), v (128 x MAXD), and for MAXD <= 64 the
+// raw staging tile (128 rows of MAXD values of T, padded by 16 bytes).
+template <int MAXD, typename T>
+struct Smem {
+  static constexpr bool kAsync = MAXD <= 64;
+  static constexpr int kRawLd = MAXD + 16 / (int)sizeof(T);
+  static constexpr size_t kQ = (size_t)MAXD * kBlk;
+  static constexpr size_t kKP = (size_t)kBlk * kPld;
+  static constexpr size_t kV = (size_t)kBlk * MAXD;
+  static constexpr size_t kRaw =
+      kAsync ? (size_t)kBlk * kRawLd * sizeof(T) : 0;
+  static constexpr size_t kBytes = (kQ + kKP + kV) * sizeof(float) + kRaw;
 };
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -102,180 +139,400 @@ __device__ __forceinline__ bool visible(int q_pos, int k_pos,
   return m;
 }
 
-// Stage one head's tile into shared memory: `rows` rows of `cols` floats at
-// row stride `ld`, row r read from src + r * stride (D values; rows at or
-// beyond `valid` and columns at or beyond D are zero).  With a format, the
-// tile is then rounded in place, after the exact pow2 tile scale when
-// `scaled`; returns the dequant scale (1 unless scaled).  Each thread
-// rounds the elements it loaded, and the call ends at a barrier.
-template <typename T>
-__device__ float stage_tile(float* dst, int ld, int cols,
-                            const T* __restrict__ src, long long stride,
-                            int valid, int rows, const FlashArgs& p,
-                            unsigned* warp_max) {
-  const int n = rows * cols;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const int r = idx / cols, d = idx % cols;
-    dst[r * ld + d] = (r < valid && d < p.D) ? widen(src[r * stride + d])
-                                             : 0.0f;
+// The i-th (0..7) of the rows or columns a thread owns in a 128-wide tile:
+// four consecutive ones from g*4 in each half.
+__device__ __forceinline__ int half_idx(int g, int i) {
+  return (i >> 2) * 64 + g * 4 + (i & 3);
+}
+
+// The n-th output column of thread column tc in p v (TN = MAXD / 16 a
+// thread): tc itself for TN = 1, else four consecutive ones from tc*4 in
+// each 64-wide half.
+template <int TN>
+__device__ __forceinline__ int out_col(int tc, int n) {
+  return TN == 1 ? tc : (n >> 2) * 64 + tc * 4 + (n & 3);
+}
+
+__device__ __forceinline__ float comp(const float4& x, int c) {
+  return c == 0 ? x.x : c == 1 ? x.y : c == 2 ? x.z : x.w;
+}
+
+__device__ __forceinline__ unsigned warp_max_bits(unsigned m) {
+  for (int off = 16; off > 0; off >>= 1)
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Four values of one row from d on, as f32: `n` of them lie below D (the
+// rest are zero).  `vec`: s is the shared staging tile (D == MAXD, aligned),
+// read in one 16- or 8-byte load.
+__device__ __forceinline__ float4 load4(const float* s, bool vec, int n) {
+  if (vec) return *reinterpret_cast<const float4*>(s);
+  return make_float4(n > 0 ? s[0] : 0.0f, n > 1 ? s[1] : 0.0f,
+                     n > 2 ? s[2] : 0.0f, n > 3 ? s[3] : 0.0f);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* s, bool vec,
+                                        int n) {
+  if (vec) {  // bf16 to f32 is the 16 bits shifted up
+    const uint2 u = *reinterpret_cast<const uint2*>(s);
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
   }
+  return make_float4(n > 0 ? widen(s[0]) : 0.0f, n > 1 ? widen(s[1]) : 0.0f,
+                     n > 2 ? widen(s[2]) : 0.0f, n > 3 ? widen(s[3]) : 0.0f);
+}
+
+// Copy rows [0, valid) of one head's (bk, MAXD) tile, row r at src + r *
+// ld, into the staging tile with cp.async (16 bytes a copy), and commit.
+template <int MAXD, typename T>
+__device__ void issue_tile(T* raw, const T* src, long long ld, int valid) {
+  constexpr int E = 16 / (int)sizeof(T);
+  constexpr int C = MAXD / E;
+  for (int idx = threadIdx.x; idx < valid * C; idx += kThreads) {
+    const int r = idx / C, c = idx % C;
+    cp_async16(raw + r * Smem<MAXD, T>::kRawLd + c * E, src + r * ld + c * E);
+  }
+  cp_async_commit();
+}
+
+// Widen a 128-row tile into dst as f32: row r < valid from src + r * ld (D
+// values), zeros elsewhere (rows at or beyond valid, columns at or beyond
+// D).  DMAJOR stores dst[d * 128 + r], four columns of one row per thread
+// with neighbouring threads on neighbouring rows, so the stores do not
+// conflict; otherwise dst[r * MAXD + d], neighbouring threads on
+// neighbouring column groups.  Thread `tid` of `nthr` takes every nthr-th
+// group.  Returns the largest abs_bits among the values it wrote.
+template <int MAXD, bool DMAJOR, typename T>
+__device__ unsigned widen_tile(float* dst, const T* src, long long ld,
+                               int valid, int D, bool vec, int tid,
+                               int nthr) {
+  constexpr int G = MAXD / 4;
+  unsigned mx = 0;
+  for (int g = tid; g < kBlk * G; g += nthr) {
+    const int r = DMAJOR ? g % kBlk : g / G;
+    const int d = 4 * (DMAJOR ? g / kBlk : g % G);
+    const float4 x = r < valid ? load4(src + r * ld + d, vec, D - d)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    mx = max(mx, max(max(abs_bits(x.x), abs_bits(x.y)),
+                     max(abs_bits(x.z), abs_bits(x.w))));
+    if (DMAJOR) {
+      dst[d * kBlk + r] = x.x;
+      dst[(d + 1) * kBlk + r] = x.y;
+      dst[(d + 2) * kBlk + r] = x.z;
+      dst[(d + 3) * kBlk + r] = x.w;
+    } else {
+      *reinterpret_cast<float4*>(dst + r * MAXD + d) = x;
+    }
+  }
+  return mx;
+}
+
+__device__ __forceinline__ float4 round4(float4 x, bool scaled, float inv,
+                                         const QFmt f) {
+  if (scaled) {
+    x.x = __fmul_rn(x.x, inv);
+    x.y = __fmul_rn(x.y, inv);
+    x.z = __fmul_rn(x.z, inv);
+    x.w = __fmul_rn(x.w, inv);
+  }
+  return make_float4(quantize_rne_mul(x.x, f), quantize_rne_mul(x.y, f),
+                     quantize_rne_mul(x.z, f), quantize_rne_mul(x.w, f));
+}
+
+// With a format, round the first n floats of a staged tile in place (after
+// the exact pow2 tile scale when scaled, from the maxima warps w0..7 left in
+// warp_max) and, given one, the probability tile (its first bk columns,
+// unscaled), with all threads, and end at a barrier; returns the tile's
+// dequant scale (1 unless rounded and scaled).  Without one, does nothing.
+__device__ float round_staged(float* t, int n, int w0, const FlashArgs& p,
+                              const unsigned* warp_max,
+                              float* probs = nullptr) {
+  if (!p.round) return 1.0f;
   float scale = 1.0f, inv = 1.0f;
-  if (p.round && p.scaled) {
+  if (p.scaled) {
     unsigned m = 0;
-    for (int idx = threadIdx.x; idx < n; idx += kThreads)
-      m = max(m, abs_bits(dst[(idx / cols) * ld + idx % cols]));
-    for (int off = 16; off > 0; off >>= 1)
-      m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = m;
-    __syncthreads();
-    for (int w = 0; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
+    for (int w = w0; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
     const int e = tile_scale_exp(m, p.f);
     scale = pow2_from_exp(e);
     inv = pow2_from_exp(-e);
   }
-  if (p.round) {
-    for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-      float* x = dst + (idx / cols) * ld + idx % cols;
-      *x = quantize_rne(p.scaled ? __fmul_rn(*x, inv) : *x, p.f);
+  for (int i = threadIdx.x * 4; i < n; i += kThreads * 4) {
+    float4* x = reinterpret_cast<float4*>(t + i);
+    *x = round4(*x, p.scaled, inv, p.f);
+  }
+  if (probs) {  // neighbouring threads on neighbouring rows
+    const int c4 = (p.bk + 3) / 4;
+    for (int i = threadIdx.x; i < kBlk * c4; i += kThreads) {
+      float4* x = reinterpret_cast<float4*>(probs + (i % kBlk) * kPld +
+                                            (i / kBlk) * 4);
+      *x = round4(*x, false, 1.0f, p.f);
     }
   }
   __syncthreads();
   return scale;
 }
 
+// Stage a d-major tile with all threads (widen, then round): returns the
+// dequant scale; ends at a barrier.
 template <int MAXD, typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ float stage_dmajor(float* dst, const T* src, long long ld,
+                              int valid, bool vec, const FlashArgs& p,
+                              unsigned* warp_max) {
+  unsigned mx = widen_tile<MAXD, true>(dst, src, ld, valid, p.D, vec,
+                                       threadIdx.x, kThreads);
+  if (p.round && p.scaled) {
+    mx = warp_max_bits(mx);
+    if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = mx;
+  }
+  __syncthreads();
+  return round_staged(dst, p.D * kBlk, 0, p, warp_max);
+}
+
+template <int MAXD, typename T>
+__global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out,
              const FlashArgs p) {
+  using L = Smem<MAXD, T>;
+  constexpr int TN = MAXD / 16;  // output columns a thread holds in p v
   extern __shared__ __align__(16) float smem[];
   __shared__ unsigned warp_max[kThreads / 32];
-  constexpr int ldq = MAXD + 1;
-  const int ldp = p.bk + 1;
-  float* s_kv = smem;                    // bk x MAXD: k, then v
-  float* s_q = s_kv + p.bk * MAXD;       // bq x (MAXD + 1)
-  float* s_p = s_q + p.bq * ldq;         // bq x (bk + 1): s, then p
+  __shared__ float s_corr[kBlk], s_l[kBlk];
+  float* s_q = smem;
+  float* s_kp = s_q + L::kQ;  // k, then p of the same kv block
+  float* s_v = s_kp + L::kKP;
+  T* raw = reinterpret_cast<T*>(s_v + L::kV);
 
+  const int t = threadIdx.x, tr = t / 16, tc = t % 16;
   const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const int row0 = qi * p.bq;
-  const int i = threadIdx.x;
-  const bool own = i < p.bq;
-  const int q_pos = p.q_offset + row0 + i;
   const bool rounded_scaled = p.round && p.scaled;
+  const bool async = L::kAsync && p.async;
+  const bool rows_live = tr * 4 < p.bq;  // else all 8 rows lie beyond bq
+  const long long kv_ld = (long long)p.Hkv * p.D;
+  const long long head = ((long long)b * p.Sk * p.Hkv + hk) * p.D;
+  const T* k_head = k + head;
+  const T* v_head = v + head;
 
-  const float sq = stage_tile(
-      s_q, ldq, MAXD, q + (((long long)b * p.Sq + row0) * p.Hq + h) * p.D,
-      (long long)p.Hq * p.D, min(p.bq, p.Sq - row0), p.bq, p, warp_max);
+  if (async) issue_tile<MAXD>(raw, k_head, kv_ld, min(p.bk, p.Sk));
+  const float sq = stage_dmajor<MAXD>(
+      s_q, q + (((long long)b * p.Sq + row0) * p.Hq + h) * p.D,
+      (long long)p.Hq * p.D, min(p.bq, p.Sq - row0), false, p, warp_max);
+  if (async) {
+    cp_async_wait_all();
+    __syncthreads();
+  }
 
-  float m = kNegInf, l = 0.0f;
-  float acc[MAXD];
+  float m[8], acc[8][TN], l = 0.0f;
 #pragma unroll
-  for (int d = 0; d < MAXD; ++d) acc[d] = 0.0f;
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+#pragma unroll
+    for (int n = 0; n < TN; ++n) acc[i][n] = 0.0f;
+  }
 
   for (int kj = 0; kj < p.nk; ++kj) {
     const int col0 = kj * p.bk;
-    const long long kv_off =
-        (((long long)b * p.Sk + col0) * p.Hkv + hk) * p.D;
-    const long long kv_stride = (long long)p.Hkv * p.D;
     const int kv_valid = min(p.bk, p.Sk - col0);
-    const float sk = stage_tile(s_kv, MAXD, MAXD, k + kv_off, kv_stride,
-                                kv_valid, p.bk, p, warp_max);
-    float m_new = m, corr = 0.0f;
-    if (own) {
-      const float* qr = s_q + i * ldq;
-      float* pr = s_p + i * ldp;
-      const float sqk = __fmul_rn(sq, sk);
-      float mx = 0.0f;
-      // steps 1-4, four kv columns at a time (four independent sums, each
-      // over d in order)
-      for (int j0 = 0; j0 < p.bk; j0 += 4) {
-        const float* k0 = s_kv + min(j0, p.bk - 1) * MAXD;
-        const float* k1 = s_kv + min(j0 + 1, p.bk - 1) * MAXD;
-        const float* k2 = s_kv + min(j0 + 2, p.bk - 1) * MAXD;
-        const float* k3 = s_kv + min(j0 + 3, p.bk - 1) * MAXD;
-        float s[4] = {__fmul_rn(qr[0], k0[0]), __fmul_rn(qr[0], k1[0]),
-                      __fmul_rn(qr[0], k2[0]), __fmul_rn(qr[0], k3[0])};
-        for (int d = 1; d < p.D; ++d) {
-          const float qd = qr[d];
-          s[0] = __fadd_rn(s[0], __fmul_rn(qd, k0[d]));
-          s[1] = __fadd_rn(s[1], __fmul_rn(qd, k1[d]));
-          s[2] = __fadd_rn(s[2], __fmul_rn(qd, k2[d]));
-          s[3] = __fadd_rn(s[3], __fmul_rn(qd, k3[d]));
+    const long long off = (long long)col0 * kv_ld;
+    const float sk = stage_dmajor<MAXD>(
+        s_kp, async ? raw : k_head + off, async ? L::kRawLd : kv_ld,
+        kv_valid, async, p, warp_max);
+    if (async) issue_tile<MAXD>(raw, v_head + off, kv_ld, kv_valid);
+
+    // step 1: 64 chains over d, each from -0
+    float s[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = -0.0f;
+    if (rows_live && tc * 4 < p.bk) {
+      const float* qp = s_q + tr * 4;
+      const float* kp = s_kp + tc * 4;
+#pragma unroll 2
+      for (int d = 0; d < p.D; ++d) {
+        const float4 qa = *reinterpret_cast<const float4*>(qp + d * kBlk);
+        const float4 qb =
+            *reinterpret_cast<const float4*>(qp + d * kBlk + 64);
+        const float4 ka = *reinterpret_cast<const float4*>(kp + d * kBlk);
+        const float4 kb =
+            *reinterpret_cast<const float4*>(kp + d * kBlk + 64);
+        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+        const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            s[i][j] = __fadd_rn(s[i][j], __fmul_rn(qv[i], kv[j]));
+      }
+    }
+
+    // steps 2-7 in registers; columns at or beyond bk are not in the block
+    const float sqk = __fmul_rn(sq, sk);
+    float corr[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q_pos = p.q_offset + row0 + half_idx(tr, i);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = half_idx(tc, j);
+        float sc = s[i][j];
+        if (rounded_scaled) sc = __fmul_rn(sc, sqk);
+        sc = __fmul_rn(sc, p.scale);
+        s[i][j] = sc;
+        if (col < p.bk)
+          mx = max_nan(mx, visible(q_pos, col0 + col, p) ? sc : kNegInf);
+      }
+      for (int off = 8; off > 0; off >>= 1)  // the row's 16 threads
+        mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = max_nan(m[i], mx);
+      const float m_safe = m_new <= kHalfNegInf ? 0.0f : m_new;
+      corr[i] = __fmul_rn(expf(min_nan(__fsub_rn(m[i], m_safe), 0.0f)),
+                          m[i] > kHalfNegInf ? 1.0f : 0.0f);
+      m[i] = m_new;  // step 12: the carry is m_new, not m_safe
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = half_idx(tc, j);
+        s[i][j] = col < p.bk
+                      ? __fmul_rn(expf(__fsub_rn(s[i][j], m_safe)),
+                                  visible(q_pos, col0 + col, p) ? 1.0f
+                                                                : 0.0f)
+                      : 0.0f;
+      }
+    }
+    __syncthreads();  // every thread is done with the k tile: p replaces it
+    float* s_p = s_kp;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* pr = s_p + half_idx(tr, i) * kPld + tc * 4;
+      *reinterpret_cast<float4*>(pr) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      *reinterpret_cast<float4*>(pr + 64) =
+          make_float4(s[i][4], s[i][5], s[i][6], s[i][7]);
+      if (tc == 0) s_corr[half_idx(tr, i)] = corr[i];
+    }
+    if (async) cp_async_wait_all();  // the v tile
+    __syncthreads();
+
+    if (t < kBlk) {
+      // step 8 over the unrounded p: one thread a row
+      if (t < p.bq) {
+        const float* pr = s_p + t * kPld;
+        float lsum = -0.0f;
+        for (int j0 = 0; j0 < p.bk; j0 += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(pr + j0);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (j0 + c < p.bk) lsum = __fadd_rn(lsum, comp(x, c));
         }
+        l = __fadd_rn(__fmul_rn(l, s_corr[t]), lsum);
+      }
+    } else {
+      // meanwhile the other four warps widen the v tile
+      unsigned mx = widen_tile<MAXD, false>(
+          s_v, async ? raw : v_head + off, async ? L::kRawLd : kv_ld,
+          kv_valid, p.D, async, t - kBlk, kThreads - kBlk);
+      if (rounded_scaled) {
+        mx = warp_max_bits(mx);
+        if (t % 32 == 0) warp_max[t / 32] = mx;
+      }
+    }
+    __syncthreads();
+    // step 9 and the v tile's rounding, with all threads
+    const float sv =
+        round_staged(s_v, p.bk * MAXD, kBlk / 32, p, warp_max, s_p);
+    if (async && kj + 1 < p.nk)
+      issue_tile<MAXD>(raw, k_head + off + (long long)p.bk * kv_ld, kv_ld,
+                       min(p.bk, p.Sk - col0 - p.bk));
+
+    // steps 10-11: chains over j of the rounded p, each from -0
+    if (rows_live) {
+      float pv[8][TN];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int n = 0; n < TN; ++n) pv[i][n] = -0.0f;
+      for (int j0 = 0; j0 < p.bk; j0 += 4) {
+        float4 pj[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          pj[i] = *reinterpret_cast<const float4*>(
+              s_p + half_idx(tr, i) * kPld + j0);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const int j = j0 + c;
-          if (j >= p.bk) break;
-          float sc = s[c];
-          if (rounded_scaled) sc = __fmul_rn(sc, sqk);
-          sc = __fmul_rn(sc, p.scale);
-          pr[j] = sc;
-          const float sm = visible(q_pos, col0 + j, p) ? sc : kNegInf;
-          mx = (j == 0 || isnan(sm) || sm > mx) ? sm : mx;
-        }
-      }
-      // steps 4-8
-      m_new = max_nan(m, mx);
-      const float m_safe = m_new <= kHalfNegInf ? 0.0f : m_new;
-      corr = __fmul_rn(expf(min_nan(__fsub_rn(m, m_safe), 0.0f)),
-                       m > kHalfNegInf ? 1.0f : 0.0f);
-      float lsum = 0.0f;
-      for (int j = 0; j < p.bk; ++j) {
-        float pj = __fmul_rn(expf(__fsub_rn(pr[j], m_safe)),
-                             visible(q_pos, col0 + j, p) ? 1.0f : 0.0f);
-        lsum = j == 0 ? pj : __fadd_rn(lsum, pj);
-        if (p.round) pj = quantize_rne(pj, p.f);  // step 9
-        pr[j] = pj;
-      }
-      l = __fadd_rn(__fmul_rn(l, corr), lsum);
-    }
-    __syncthreads();  // every row is done with the k tile
-    const float sv = stage_tile(s_kv, MAXD, MAXD, v + kv_off, kv_stride,
-                                kv_valid, p.bk, p, warp_max);
-    if (own) {
-      // steps 10-11, four head columns at a time (each summed over j in
-      // order)
-      const float* pr = s_p + i * ldp;
+          if (j0 + c < p.bk) {
+            const float* vr = s_v + (j0 + c) * MAXD;
+            float vv[TN];
+            if constexpr (TN == 1) {
+              vv[0] = vr[tc];
+            } else {
 #pragma unroll
-      for (int d0 = 0; d0 < MAXD; d0 += 4) {
-        float pj = pr[0];
-        float4 vv = *reinterpret_cast<const float4*>(s_kv + d0);
-        float a0 = __fmul_rn(pj, vv.x), a1 = __fmul_rn(pj, vv.y);
-        float a2 = __fmul_rn(pj, vv.z), a3 = __fmul_rn(pj, vv.w);
-        for (int j = 1; j < p.bk; ++j) {
-          pj = pr[j];
-          vv = *reinterpret_cast<const float4*>(s_kv + j * MAXD + d0);
-          a0 = __fadd_rn(a0, __fmul_rn(pj, vv.x));
-          a1 = __fadd_rn(a1, __fmul_rn(pj, vv.y));
-          a2 = __fadd_rn(a2, __fmul_rn(pj, vv.z));
-          a3 = __fadd_rn(a3, __fmul_rn(pj, vv.w));
+              for (int hh = 0; hh < TN / 4; ++hh) {
+                const float4 x =
+                    *reinterpret_cast<const float4*>(vr + hh * 64 + tc * 4);
+                vv[hh * 4] = x.x;
+                vv[hh * 4 + 1] = x.y;
+                vv[hh * 4 + 2] = x.z;
+                vv[hh * 4 + 3] = x.w;
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float pc = comp(pj[i], c);
+#pragma unroll
+              for (int n = 0; n < TN; ++n)
+                pv[i][n] = __fadd_rn(pv[i][n], __fmul_rn(pc, vv[n]));
+            }
+          }
         }
-        if (rounded_scaled) {
-          a0 = __fmul_rn(a0, sv);
-          a1 = __fmul_rn(a1, sv);
-          a2 = __fmul_rn(a2, sv);
-          a3 = __fmul_rn(a3, sv);
-        }
-        acc[d0] = __fadd_rn(__fmul_rn(acc[d0], corr), a0);
-        acc[d0 + 1] = __fadd_rn(__fmul_rn(acc[d0 + 1], corr), a1);
-        acc[d0 + 2] = __fadd_rn(__fmul_rn(acc[d0 + 2], corr), a2);
-        acc[d0 + 3] = __fadd_rn(__fmul_rn(acc[d0 + 3], corr), a3);
       }
-      m = m_new;  // step 12: the carry is m_new, not m_safe
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int n = 0; n < TN; ++n) {
+          float x = pv[i][n];
+          if (rounded_scaled) x = __fmul_rn(x, sv);
+          acc[i][n] = __fadd_rn(__fmul_rn(acc[i][n], corr[i]), x);
+        }
     }
-    __syncthreads();  // every row is done with the v tile
+    if (async) cp_async_wait_all();  // the next k tile
+    __syncthreads();  // every thread is done with p and v
   }
 
-  if (own && row0 + i < p.Sq) {
-    const float den = isnan(l) ? l : fmaxf(l, 1e-30f);
-    T* orow = out + (((long long)b * p.Sq + row0 + i) * p.Hq + h) * p.D;
+  if (t < kBlk) s_l[t] = l;
+  __syncthreads();
+  if (!rows_live) return;
 #pragma unroll
-    for (int d = 0; d < MAXD; ++d) {
-      if (d < p.D) {
-        float o = __fdiv_rn(acc[d], den);
-        if (p.round_out) o = quantize_rne(o, p.fo);
-        narrow(orow + d, o);
+  for (int i = 0; i < 8; ++i) {
+    const int row = half_idx(tr, i);
+    if (row >= p.bq || row0 + row >= p.Sq) continue;
+    const float lr = s_l[row];
+    const float den = isnan(lr) ? lr : fmaxf(lr, 1e-30f);
+    T* orow = out + (((long long)b * p.Sq + row0 + row) * p.Hq + h) * p.D;
+#pragma unroll
+    for (int n = 0; n < TN; ++n) {
+      const int col = out_col<TN>(tc, n);
+      if (col < p.D) {
+        float o = __fdiv_rn(acc[i][n], den);
+        if (p.round_out) o = quantize_rne_mul(o, p.fo);
+        narrow(orow + col, o);
       }
     }
   }
@@ -283,16 +540,18 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int MAXD, typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int nb,
-           const FlashArgs& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)p.bk * MAXD +
-                                       (size_t)p.bq * (MAXD + 1) +
-                                       (size_t)p.bq * (p.bk + 1));
+           FlashArgs p, cudaStream_t stream) {
+  using L = Smem<MAXD, T>;
+  // cp.async copies 16-byte pieces of whole rows: D must fill the tile and
+  // both operands start on 16 bytes (every row then does)
+  p.async = L::kAsync && p.D == MAXD && (uintptr_t)k % 16 == 0 &&
+            (uintptr_t)v % 16 == 0;
   cudaError_t e = cudaFuncSetAttribute(
       flash_kernel<MAXD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)L::kBytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((p.Sq + p.bq - 1) / p.bq, p.Hq, nb);
-  flash_kernel<MAXD, T><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<MAXD, T><<<grid, kThreads, L::kBytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, p);
   return (int)cudaGetLastError();
 }
@@ -317,9 +576,9 @@ extern "C" int repro_flash_attention(
     int Sq, int Sk, int Hq, int Hkv, int D, int bq, int bk, int exp_bits,
     int man_bits, int scaled, int out_exp, int out_man, int causal,
     int window, int kv_len, int q_offset, float scale, void* stream) {
-  if (D < 1 || D > 128 || bq < 1 || bq > kMaxBlock || bk < 1 ||
-      bk > kMaxBlock || Hkv < 1 || Hq % Hkv != 0 || nb > 65535 ||
-      Hq > 65535 || dtype < 0 || dtype > 1)
+  if (D < 1 || D > 128 || bq < 1 || bq > kBlk || bk < 1 || bk > kBlk ||
+      Hkv < 1 || Hq % Hkv != 0 || nb > 65535 || Hq > 65535 || dtype < 0 ||
+      dtype > 1)
     return (int)cudaErrorInvalidValue;
   if (nb <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0) return 0;
   FlashArgs p;
@@ -331,7 +590,7 @@ extern "C" int repro_flash_attention(
   p.round_out = out_exp > 0;
   p.fo = p.round_out ? make_qfmt(out_exp, out_man) : make_qfmt(8, 23);
   p.causal = causal; p.window = window; p.kv_len = kv_len;
-  p.q_offset = q_offset; p.scale = scale;
+  p.q_offset = q_offset; p.scale = scale; p.async = 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return launch_d<float>(q, k, v, out, nb, p, st);
   return launch_d<__nv_bfloat16>(q, k, v, out, nb, p, st);

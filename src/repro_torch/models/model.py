@@ -38,6 +38,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
 
 
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to the KV cache's ``dtype``.  Into ``float8_e4m3fn``,
+    |x| > 464 and +-inf become NaN, as the JAX package's ``astype`` gives
+    them, where torch's cast saturates to +-448 (464 is the tie between
+    448 and the next step, which rounds to 448)."""
+    if dtype == torch.float8_e4m3fn:
+        x = torch.where(x.abs() > 464, x.new_tensor(float("nan")), x)
+    return x.to(dtype)
+
+
 def _pad_vocab(v: int, multiple: int = 256) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
@@ -118,9 +128,9 @@ def attn_block_decode(p, x, k_cache, v_cache, cache_len, cfg: ArchConfig, *,
         keep = keep & write_mask
     idx = cache_len.clamp(max=Smax - 1)
     keep = keep[:, None, None]
-    k_cache[lanes, idx] = torch.where(keep, k[:, 0].to(k_cache.dtype),
+    k_cache[lanes, idx] = torch.where(keep, to_cache(k[:, 0], k_cache.dtype),
                                       k_cache[lanes, idx])
-    v_cache[lanes, idx] = torch.where(keep, v[:, 0].to(v_cache.dtype),
+    v_cache[lanes, idx] = torch.where(keep, to_cache(v[:, 0], v_cache.dtype),
                                       v_cache[lanes, idx])
     valid = torch.clamp(cache_len + 1, max=Smax)
     attn = decode_attention(q, k_cache, v_cache, valid, window=cfg.window)
@@ -155,7 +165,7 @@ def _chunk_attn_block(p, x, k_cache, v_cache, offsets, chunk_lens, positions,
     new_k, new_v = [], []
     for cache, fresh, out in ((k_cache, k, new_k), (v_cache, v, new_v)):
         ext = torch.cat([cache, cache[:, :1]], dim=1)
-        ext[lanes, write_idx] = fresh.to(cache.dtype)
+        ext[lanes, write_idx] = to_cache(fresh, cache.dtype)
         out.append(ext[:, :smax])
     return (_residual_ffn(p, x, attn, cfg, policy), new_k[0], new_v[0])
 
@@ -276,8 +286,8 @@ class LM:
                 x, (k, v) = attn_block_apply(_layer(params["layers"], i), x,
                                              positions, cfg, policy=policy)
                 if collect_kv:
-                    ks.append(k.to(self.cache_dtype))
-                    vs.append(v.to(self.cache_dtype))
+                    ks.append(to_cache(k, self.cache_dtype))
+                    vs.append(to_cache(v, self.cache_dtype))
             if collect_kv:
                 collected = (torch.stack(ks), torch.stack(vs))
         x = rmsnorm(params["final_norm"], x)

@@ -1,7 +1,7 @@
 """``repro_torch.numerics`` — formats, the format registry and the emulation
-entry points of the port (counterpart of ``repro.numerics``; the softfloat
-scalar semantics, the accuracy oracle, ``emulated_dot`` and the flash
-emulation arrive with later slices)."""
+entry points of the port: matmul, quantize, the selective scan and flash
+attention (counterpart of ``repro.numerics``; the softfloat scalar
+semantics, the accuracy oracle and ``emulated_dot`` are not ported yet)."""
 from repro_torch.core.formats import (  # noqa: F401
     BF16, FP8_E4M3, FP8_E5M2, FP16, FP32, FP64, TF32, FloatFormat, quantize,
 )

@@ -13,7 +13,9 @@ and ``'cascade_fwd'`` (rounded partial products, unrounded accumulator).
 its plain tile replay (CPU tensors), ``'pallas'`` the K3 kernel (the name of
 the JAX route it stands for) or its plain version, ``'ref'`` the plain
 k-block reference the JAX package runs on the CPU, and ``'auto'`` picks
-``'fused'`` on CUDA and ``'ref'`` on the CPU.  ``emulated_ssm_scan`` and
+``'fused'`` on CUDA and ``'ref'`` on the CPU.  The JAX package's
+interpret-mode names run the same kernels: ``'interpret'`` is ``'pallas'``
+and ``'fused_interpret'`` is ``'fused'``.  ``emulated_ssm_scan`` and
 ``emulated_flash_attention`` map the JAX package's scan and attention routes
 the same way onto K5 and K4.
 """
@@ -26,6 +28,8 @@ from repro_torch.core.formats import FloatFormat
 from repro_torch.numerics.registry import get_format
 
 STYLES = ("fused", "cascade", "cascade_fwd")
+#: the JAX package's interpret-mode routes -> the port's kernel routes
+_INTERPRET_ROUTES = {"interpret": "pallas", "fused_interpret": "fused"}
 
 
 def accum_style_for(style: str, forwarding: bool = True) -> str:
@@ -59,6 +63,7 @@ def emulated_matmul(a, b, *, fmt: FloatFormat | str, style: str = "fused",
     b = torch.as_tensor(b, device=dev)
     if impl == "auto":
         impl = "fused" if _on_cuda(dev) else "ref"
+    impl = _INTERPRET_ROUTES.get(impl, impl)
     from repro_torch.kernels import fma_emu as _fma_emu
     from repro_torch.kernels import fused as _fused
     from repro_torch.kernels import ref as _ref

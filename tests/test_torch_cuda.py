@@ -386,19 +386,28 @@ def _flash_operands(card, q_shape, kv_shape, seed, dtype=torch.float32,
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-#: (q shape, kv shape, keywords): GQA groups of 1, 2 and 8, ragged lengths,
-#: Sq != Sk with q_offset, kv_len < Sk, a window, a decode shape (Sq = 1)
+#: (q shape, kv shape, keywords): GQA groups of 1, 2, 4 and 8, ragged
+#: lengths, Sq != Sk with q_offset, kv_len < Sk, a window, a decode shape
+#: (Sq = 1), and lengths above 128 so that unequal blocks stay unequal
 FLASH_CASES = {
     "gqa2-ragged": ((2, 45, 4), (2, 45, 2), {}),
     "gqa8-offset": ((1, 37, 8), (1, 53, 1), dict(q_offset=16)),
     "g1-window-kvlen": ((2, 50, 2), (2, 50, 2), dict(window=8, kv_len=41)),
     "decode": ((3, 1, 4), (3, 70, 2), dict(q_offset=69, kv_len=70)),
+    "gqa2-long": ((2, 200, 4), (2, 200, 2), {}),
+    "gqa4-long-offset": ((1, 150, 8), (1, 290, 2),
+                         dict(q_offset=140, kv_len=281)),
 }
+#: (block_q, block_k): equal blocks, and unequal ones over several tiles
+FLASH_BLOCKS = [pytest.param((16, 16), id="16"),
+                pytest.param((128, 128), id="128"),
+                pytest.param((128, 64), id="128x64"),
+                pytest.param((64, 128), id="64x128")]
 FLASH_FMTS = ((None, False, None), ("bf16", False, None),
               ("fp8_e4m3", True, None), ("fp8_e5m2", True, "bf16"))
 
 
-@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("block", FLASH_BLOCKS)
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_kernel_bitwise(card, case, D, block):
@@ -407,8 +416,8 @@ def test_flash_kernel_bitwise(card, case, D, block):
     for fmt, scaled, out_fmt in FLASH_FMTS:
         fmt = tf.REGISTRY[fmt] if fmt else None
         out_fmt = tf.REGISTRY[out_fmt] if out_fmt else None
-        args = dict(fmt=fmt, scaled=scaled, out_fmt=out_fmt, block_q=block,
-                    block_k=block, **kw)
+        args = dict(fmt=fmt, scaled=scaled, out_fmt=out_fmt,
+                    block_q=block[0], block_k=block[1], **kw)
         before = fused_flash_attention.launches
         got = fused_flash_attention(q, k, v, **args)
         assert fused_flash_attention.launches == before + 1
@@ -476,3 +485,24 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     q = torch.zeros(1, 300, 2, 64, device=card)
     with pytest.raises(ValueError, match="blocks up to 128"):
         fused_flash_attention(q, q, q, fmt=None, block_q=256)
+
+
+def test_fp8_cache_cast_on_card(card):
+    """The KV cache's cast into float8_e4m3fn on the card gives what it
+    gives on the CPU (held against JAX's ``astype`` in
+    test_torch_kv_cache.py) for every bf16 bit pattern and the f32 edges:
+    NaN beyond 464 and for +-inf, 464 to 448."""
+    from repro_torch.models.model import to_cache
+    fp8 = torch.float8_e4m3fn
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    edges = torch.tensor([448, 463.99997, 464, 464.00003, 465, -464, -465,
+                          3e38, float("inf"), -float("inf"), float("nan"),
+                          1e-10, -0.0, 2.0 ** -9, 2.0 ** -10])
+    for x in (bits.view(torch.bfloat16), bits.view(torch.bfloat16).float(),
+              edges):
+        got = to_cache(x.to(card), fp8).cpu()
+        want = to_cache(x, fp8)
+        nan = want.float().isnan()
+        assert torch.equal(got.float().isnan(), nan)
+        assert torch.equal(got.view(torch.uint8)[~nan],
+                           want.view(torch.uint8)[~nan])

@@ -154,5 +154,23 @@ def test_pallas_impl_routes_to_fma_emu(monkeypatch):
     with pytest.raises(ValueError):
         emulated_matmul(a, b, fmt="bf16", impl="pallas", scaled=True,
                         device="cpu")
-    with pytest.raises(ValueError):
-        emulated_matmul(a, b, fmt="bf16", impl="interpret", device="cpu")
+    with pytest.raises(ValueError, match="unknown impl"):
+        emulated_matmul(a, b, fmt="bf16", impl="tpu", device="cpu")
+
+
+@pytest.mark.parametrize("impl,route", [("interpret", "pallas"),
+                                        ("fused_interpret", "fused")])
+def test_interpret_impl_names_match_jax(impl, route):
+    """The JAX package's interpret-mode names are accepted and run the
+    port's route of the same kernel: equal to that route, and within the
+    format-ulp bound of JAX's output under the same name."""
+    from repro.numerics import emulate as jemulate
+    a, b = _operands(14, a_shape=(2, 24, 160), n=24)
+    want = jemulate.emulated_matmul(jnp.asarray(a), jnp.asarray(b),
+                                    fmt="bf16", style="cascade", impl=impl)
+    got = emulated_matmul(a, b, fmt="bf16", style="cascade", impl=impl,
+                          device="cpu")
+    same = emulated_matmul(a, b, fmt="bf16", style="cascade", impl=route,
+                           device="cpu")
+    assert torch.equal(got, same)
+    _assert_within_bound(got, want, tf.BF16, a, b)

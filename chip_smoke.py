@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
   1. the card, the torch/CUDA versions, and the build of every kernel from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel), with
-     ``ptxas`` registers and spills of the K1/K3 and K4 kernels;
+     ``ptxas`` registers and spills of the K1/K3, K4 and K5/K6 kernels (a
+     spill in any of K4's six or K5/K6's four vector instantiations fails
+     the run);
   2. every kernel against its plain PyTorch version on the card: K2
      (quantize) bitwise on 4M elements with specials and f32 subnormals, K1
      (fused_qmm) and K3 (fma_emu) exactly equal to their plain versions on
@@ -23,9 +25,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      K2's on all 2**32 f32 patterns for every format, zero mismatches; and
      the emulated LM on a small config against the same LM on the CPU;
      K5 (ssm_scan_quantized) and K6 (ssm_scan) bitwise against theirs on
-     ragged shapes, every operand format, an out_fmt, f32 subnormals, +-inf
-     and NaN, with two controls the check must catch (a recurrence
-     contracted into fused multiply-adds, fp8 without operand rounding);
+     ragged shapes (S = 1, S under the ring's depth and not a multiple of
+     it, partial last d-blocks with B > 1, N = 5, 8 and 16, operands 4
+     bytes off a 16-byte boundary or non-contiguous), every operand format,
+     an out_fmt, f32 subnormals, +-inf and NaN, with three controls the
+     check must catch (a recurrence contracted into fused multiply-adds,
+     fp8 without operand rounding, the readout summed as per-lane partials
+     added in a tree);
      K4 (fused_flash_attention) bitwise against its plain version on ragged
      GQA shapes (groups of 1, 2, 8), head dims 16, 64 and 128, blocks of 16
      and 128, a window, kv_len < Sk, q_offset > 0 and Sq = 1, under no
@@ -285,23 +291,30 @@ def card_and_build():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": per_source,
           "libraries": [_build._lib_path(n).name for n in _build.SOURCES]})
-    # what ptxas -v reported for the K1/K3 and K4 kernels; a K4
-    # instantiation that spills fails the run
-    for name, source in (("qmm", "qmm.cu"), ("flash_attn", "flash_attn.cu")):
+    # what ptxas -v reported for the K1/K3, K4 and K5/K6 kernels; a K4
+    # instantiation or a K5/K6 vector (lanes) instantiation that spills
+    # fails the run
+    no_spills = {"flash_attn": ("flash_kernel", 6, "K4",
+                                "D 16/64/128 x f32/bf16"),
+                 "ssm_scan": ("ssm_scan_lanes_kernel", 4, "K5/K6",
+                              "N 8/16 x rounding off/on")}
+    for name, source in (("qmm", "qmm.cu"), ("flash_attn", "flash_attn.cu"),
+                         ("ssm_scan", "ssm_scan.cu")):
         log = _build._lib_path(name).with_suffix(".log")
-        check(log.exists() or name != "flash_attn",
-              f"no ptxas log at {log}: K4's spills cannot be checked")
+        check(log.exists() or name not in no_spills,
+              f"no ptxas log at {log}: {source}'s spills cannot be checked")
         if log.exists():
             entries = ptxas_entries(log.read_text())
             emit({"phase": "ptxas", "source": source, "kernels": entries})
-            if name == "flash_attn":
-                flash = [e for e in entries if e["kernel"] == "flash_kernel"]
-                check(len(flash) == 6, f"ptxas reported {len(flash)} K4 "
-                      "instantiations, expected 6 (D 16/64/128 x f32/bf16)")
-                for e in flash:
+            if name in no_spills:
+                kernel, count, label, what = no_spills[name]
+                found = [e for e in entries if e["kernel"] == kernel]
+                check(len(found) == count, f"ptxas reported {len(found)} "
+                      f"{label} instantiations, expected {count} ({what})")
+                for e in found:
                     check(e["spill_store_bytes"] == 0 and
                           e["spill_load_bytes"] == 0,
-                          f"K4 {e['template']} spills: {e}")
+                          f"{label} {e['template']} spills: {e}")
     return smi
 
 
@@ -553,27 +566,60 @@ def scan_operands(gen, shape, dev, specials=True):
     return a, b, c
 
 
+def scan_layout(t, layout):
+    """The same values as ``t`` 4 bytes off a 16-byte boundary
+    (``offset4``), as a non-contiguous view (``strided``), or as they are;
+    the wrappers realign the first two."""
+    if layout == "offset4":
+        flat = torch.empty(t.numel() + 1, device=t.device)[1:]
+        return flat.view(t.shape).copy_(t)
+    if layout == "strided":
+        return t.transpose(0, -1).contiguous().transpose(0, -1)
+    return t
+
+
+def tree_readout(prod):
+    """The readout summed as per-lane partials added in a tree: each
+    group of four products summed from its first, the groups' sums then
+    added pairwise (a control: the kernel's order is one chain)."""
+    parts = [((prod[..., n] + prod[..., n + 1]) + prod[..., n + 2])
+             + prod[..., n + 3] for n in range(0, prod.shape[-1], 4)]
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
 def check_scan_kernels(dev):
-    """K6 and K5 bitwise against their plain versions, and two controls the
-    check must catch."""
+    """K6 and K5 bitwise against their plain versions, and three controls
+    the check must catch."""
     from repro_torch.core import formats as F
     from repro_torch.kernels.fused import (ssm_scan_quantized,
                                            ssm_scan_quantized_ref)
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 2)
-    # (shape, chunk, bd): falcon-mamba's N = 16, a ragged D (not a multiple
-    # of the 128-thread block), N = 8 (the reduced configs) and N = 5 (the
-    # kernel's variant for any N)
-    cases = [((2, 128, 8192 // 16, 16), 64, 256), ((3, 64, 200, 16), 32, 200),
-             ((2, 48, 136, 8), 16, 136), ((1, 32, 40, 5), 32, 40)]
+    # (shape, chunk, bd, layout): falcon-mamba's N = 16, the reduced
+    # configs' N = 8, N = 5 (the scalar kernel), S = 1, S under the ring's
+    # depth of 8 and not a multiple of it, S across the 64-step chunks of
+    # rounded c, partial last d-blocks with B > 1 (blocks of 8 rows at
+    # D = 201, 32 at D = 4100, 16 at N = 8 and D = 1000); operands 4 bytes
+    # off a 16-byte boundary and non-contiguous
+    cases = [((2, 128, 8192 // 16, 16), 64, 256, "contiguous"),
+             ((3, 64, 200, 16), 32, 200, "contiguous"),
+             ((2, 48, 136, 8), 16, 136, "contiguous"),
+             ((1, 32, 40, 5), 32, 40, "contiguous"),
+             ((2, 1, 256, 16), 1, 256, "contiguous"),
+             ((3, 13, 201, 16), 13, 201, "offset4"),
+             ((2, 70, 4100, 16), 70, 4100, "strided"),
+             ((3, 21, 1000, 8), 21, 1000, "offset4")]
     fmts = (None, F.BF16, F.FP16, F.FP8_E4M3)
     errs = {"ssm_scan": 0.0, "ssm_scan_quantized": 0.0}
     n_checks = 0
-    for shape, chunk, bd in cases:
+    for shape, chunk, bd, layout in cases:
         a, b, c = scan_operands(gen, shape, dev)
-        y6, h6 = ssm_scan(a, b, c, chunk=chunk, bd=bd)
         want = ssm_scan_ref(a, b, c)
+        a, b, c = (scan_layout(t, layout) for t in (a, b, c))
+        y6, h6 = ssm_scan(a, b, c, chunk=chunk, bd=bd)
         for got, ref in zip((y6, h6), want):
             bad = mismatches(got, ref)
             check(bad == 0, f"K6 {shape}: {bad} entries differ")
@@ -608,13 +654,14 @@ def check_scan_kernels(dev):
     torch.cuda.synchronize()
 
     # controls at falcon-mamba's N without specials: the recurrence as fused
-    # multiply-adds (float64 product and sum, rounded once), and fp8 without
-    # operand rounding (the plain version at fmt=None)
+    # multiply-adds (float64 product and sum, rounded once), fp8 without
+    # operand rounding (the plain version at fmt=None), and the readout
+    # summed as per-lane partials added in a tree
     a, b, c = scan_operands(gen, (2, 64, 1024, 16), dev, specials=False)
     y_k5, _ = ssm_scan_quantized(a, b, c, fmt=F.FP8_E4M3, chunk=64)
     y_k6, _ = ssm_scan(a, b, c)
-    h = torch.zeros_like(a[:, 0])
-    ys = []
+    h = h_tree = torch.zeros_like(a[:, 0])
+    ys, ys_tree = [], []
     for t in range(a.shape[1]):
         h = (a[:, t].double() * h.double() + b[:, t].double()).float()
         prod = h * c[:, t, None, :]
@@ -622,8 +669,11 @@ def check_scan_kernels(dev):
         for n in range(1, prod.shape[-1]):
             y = y + prod[..., n]
         ys.append(y)
+        h_tree = a[:, t] * h_tree + b[:, t]
+        ys_tree.append(tree_readout(h_tree * c[:, t, None, :]))
     controls = {
         "recurrence_as_fma": mismatches(y_k6, torch.stack(ys, 1)),
+        "readout_as_lane_tree": mismatches(y_k6, torch.stack(ys_tree, 1)),
         "fp8_without_operand_rounding": mismatches(
             y_k5, ssm_scan_quantized_ref(a, b, c, fmt=None)[0]),
     }
@@ -631,6 +681,7 @@ def check_scan_kernels(dev):
         check(bad > 0, f"control {name}: the check did not catch it")
     emit({"phase": "check", "kernel": "ssm_scan+ssm_scan_quantized",
           "checks": n_checks, "shapes": [list(c[0]) for c in cases],
+          "layouts": [c[3] for c in cases],
           "formats": [f.name if f else None for f in fmts],
           "out_formats": [None, "bf16"],
           "tolerance": "bitwise: every entry equal to the plain version's "
@@ -1406,7 +1457,8 @@ def time_scan_kernels(dev, operands, launches, errs):
     from repro_torch.core import formats as F
     from repro_torch.kernels.fused import (ssm_scan_quantized,
                                            ssm_scan_quantized_ref)
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.ssm_scan import plan_scan, ssm_scan, ssm_scan_ref
     a, bx, cm = operands
     B, S, D, N = a.shape
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
@@ -1417,6 +1469,7 @@ def time_scan_kernels(dev, operands, launches, errs):
     for fmt in (None, F.BF16, F.FP8_E4M3):
         k5[fmt.name if fmt else "none"] = time_ms(
             lambda: ssm_scan_quantized(a, bx, cm, fmt=fmt), flush)
+    plan = plan_scan(a.shape, sm_count(dev))
     k5_plain = time_ms(lambda: ssm_scan_quantized_ref(a, bx, cm, fmt=F.BF16),
                        flush, reps=3)
     # each input read once, each output written once, f32
@@ -1424,21 +1477,27 @@ def time_scan_kernels(dev, operands, launches, errs):
     byts = 4 * (2 * elems + B * S * N + B * S * D + B * D * N)
     t_bytes = 1e3 * byts / HBM_BYTES_PER_S
     # 4 flops per (b, s, d, n): the recurrence's multiply and add, the
-    # readout's; rounding an operand takes some 10 f32 operations (two
-    # divisions, rint, two multiplications, compares) for each of a, b, c
+    # readout's; rounding an operand takes some 10 f32 operations (four
+    # multiplications, rint, compares) for each of a, b, c
     t_ops6 = 1e3 * 4 * elems / PEAK_OPS_PER_S["f32"]
     t_ops5 = 1e3 * (4 * elems + 10 * (2 * elems + B * S * N)) \
         / PEAK_OPS_PER_S["f32"]
     b6, by6 = bound_of(t_bytes, t_ops6)
     b5, by5 = bound_of(t_bytes, t_ops5)
+    k5_bound = {name: (b6 if name == "none" else b5) for name in k5}
+    k5_rate = {name: byts / (ms * 1e-3) for name, ms in k5.items()}
     emit({"phase": "times", "kernel": "ssm_scan+ssm_scan_quantized",
           "shape": [B, S, D, N], "unit": "ms per launch, median of 10, L2 "
           "flushed", "bytes": byts, "bytes_ms": t_bytes,
           "ssm_scan": {**k6, "bound_ms": b6, "bound_by": by6,
                        "achieved_bytes_per_s": byts / (k6["ms"] * 1e-3)},
           "ssm_scan_quantized_ms_by_fmt": k5,
+          "ssm_scan_quantized_achieved_bytes_per_s_by_fmt": k5_rate,
+          "ssm_scan_quantized_bound_ms_by_fmt": k5_bound,
           "ssm_scan_quantized_plain_ms_bf16": k5_plain,
-          "ssm_scan_quantized_bound_ms": b5})
+          "ssm_scan_quantized_bound_ms": b5,
+          "plan": {"kernel": plan.kernel, "lanes": plan.lanes,
+                   "rows": plan.rows, "grid": list(plan.grid)}})
     work = f"layer 0 of {SSM_ARCH}, a and b {[B, S, D, N]} f32"
     return [
         dict(name="ssm_scan_quantized", route="cuda",
@@ -1447,7 +1506,9 @@ def time_scan_kernels(dev, operands, launches, errs):
              launches=launches["ssm_scan_quantized"],
              max_abs_err=errs["ssm_scan_quantized"], ms=k5["bf16"],
              plain_ms=k5_plain, bound_ms=b5, bound_by=by5, library_ms=None,
-             library_call=NO_LIBRARY_SCAN, work=work + ", fmt bf16"),
+             library_call=NO_LIBRARY_SCAN, work=work + ", fmt bf16",
+             ms_by_fmt=k5, bound_ms_by_fmt=k5_bound,
+             achieved_bytes_per_s_by_fmt=k5_rate),
         dict(name="ssm_scan", route="cuda",
              source="src/repro_torch/csrc/ssm_scan.cu",
              replaces="src/repro/kernels/ssm_scan.py:59",

@@ -10,6 +10,7 @@ compiled at import time: this module imports on machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -17,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -90,6 +93,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device, for the kernels' planners."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(rc: int, what: str) -> None:

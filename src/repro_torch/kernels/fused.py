@@ -45,6 +45,7 @@ from repro_torch.core.formats import (FloatFormat, _pow2_from_exp,
                                       _unbiased_exp_f32, quantize)
 from repro_torch.kernels import _build
 from repro_torch.kernels import ssm_scan as _ssm
+from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.ref import STYLES, TILE, accumulate
 
 _STYLE_CODE = {"fused": 0, "cascade": 1, "cascade_fwd": 2}
@@ -179,12 +180,6 @@ def tile_fill(tiles: int, sm_count: int) -> float:
     kernel keep busy over their waves, TILE_BLOCKS_PER_SM to an SM."""
     slots = TILE_BLOCKS_PER_SM * sm_count
     return tiles / (-(-tiles // slots) * slots)
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """The number of SMs of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,10 +7,12 @@ Counterpart of ``repro.kernels.ssm_scan``:
 
 for a, b (B, S, D, N) and c (B, S, N), returning y (B, S, D) and h_last
 (B, D, N), all f32.  The TPU kernel walked the grid (B, D/bd, S/chunk) with
-the chunk axis sequential in VMEM; the CUDA kernel gives each (b, d) row one
-thread that keeps its N states in registers and loops over S, so the
-(S, D, N) expansion is read once and never written.  ``chunk`` and ``bd``
-only validate shapes, as in the JAX package.
+the chunk axis sequential in VMEM; the CUDA kernel gives each (b, d) row N/4
+lanes (N = 8 and 16), each keeping four states in registers and looping
+over S with a ring of a and b several steps deep in shared memory, so the
+(S, D, N) expansion is read once and never written.  ``plan_scan`` picks
+the rows of a thread block.  ``chunk`` and ``bd`` only validate shapes, as
+in the JAX package.
 
 ``ssm_scan_ref`` is the plain version: the same rounded ops in the same
 order (``a * h`` and ``+ b`` as two ops, the readout summed over n left to
@@ -20,6 +22,7 @@ runs the same device code with rounded operands.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -72,12 +75,61 @@ def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
     return scan_ref(a, b, c)
 
 
+#: the N the lanes kernel takes (N/4 lanes a row, one float4 of states a
+#: lane); any other N runs the scalar kernel, one thread a row
+LANE_N = (8, 16)
+#: threads a block: the most, and the fewest (one warp) the planner narrows
+#: to while the grid holds fewer blocks than the card has SMs
+SCAN_THREADS = 128
+SCAN_MIN_THREADS = 32
+_GRID_Y_MAX = 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """How K5/K6 run one call on the card: the kernel (``lanes`` or
+    ``any``), the lanes of one (b, d) row, the rows of a thread block, and
+    the grid: (d-blocks, batches) for the lanes kernel, (blocks, 1) for the
+    scalar one."""
+
+    kernel: str
+    lanes: int
+    rows: int
+    grid: tuple[int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def plan_scan(shape, sm_count: int) -> ScanPlan:
+    """The schedule of one scan call with a, b of ``shape`` (B, S, D, N) on
+    a card with ``sm_count`` SMs.  N = 8 and 16 take N/4 lanes a row and
+    blocks of SCAN_THREADS threads, halved (down to one warp) while the
+    grid has fewer blocks than SMs; a block holds rows of one batch only.
+    Raises on shapes beyond the grid."""
+    B, S, D, N = shape
+    if min(B, D, N, sm_count) < 1 or S < 0:
+        raise ValueError(f"plan_scan: bad shape {tuple(shape)} or "
+                         f"sm_count={sm_count}")
+    if N not in LANE_N:
+        return ScanPlan("any", 1, SCAN_THREADS,
+                        (-(-B * D // SCAN_THREADS), 1))
+    if B > _GRID_Y_MAX:
+        raise ValueError(f"plan_scan: batch {B} beyond the grid")
+    lanes = N // 4
+    rows = SCAN_THREADS // lanes
+    while rows * lanes > SCAN_MIN_THREADS and B * -(-D // rows) < sm_count:
+        rows //= 2
+    return ScanPlan("lanes", lanes, rows, (-(-D // rows), B))
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The C entry point of K5 and K6, built and loaded at first use."""
     fn = _build.load("ssm_scan").repro_ssm_scan
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -89,8 +141,9 @@ def _f32_aligned(t: torch.Tensor) -> torch.Tensor:
 
 def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
            fmt: FloatFormat | None, out_fmt: FloatFormat | None):
-    """One launch of the device code on CUDA operands; f32 (y, h_last) out.
-    The caller counts the launch."""
+    """One launch of the device code on CUDA operands, on the schedule
+    ``plan_scan`` picks; f32 (y, h_last) out.  The caller counts the
+    launch."""
     check_shapes(a, b, c)
     for f in (fmt, out_fmt):
         if f is not None and (f.exp_bits > 8 or f.man_bits > 23):
@@ -100,6 +153,7 @@ def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     nb, s_len, d_len, n_len = a.shape
     if n_len > 256:
         raise ValueError(f"the scan kernel takes N <= 256, got {n_len}")
+    plan = plan_scan(a.shape, _build.sm_count(a.device))
     y = torch.empty((nb, s_len, d_len), dtype=torch.float32, device=a.device)
     h = torch.zeros((nb, d_len, n_len), dtype=torch.float32, device=a.device)
     exp_bits, man_bits = (fmt.exp_bits, fmt.man_bits) if fmt \
@@ -108,7 +162,7 @@ def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         else (0, 0)
     rc = _entry()(a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
                   h.data_ptr(), nb, s_len, d_len, n_len, exp_bits, man_bits,
-                  out_exp, out_man,
+                  out_exp, out_man, plan.rows,
                   torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "ssm_scan kernel")
     return y, h

@@ -301,39 +301,83 @@ def _scan_operands(card, shape, seed):
     return a, b, c
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 8192 // 64, 16), (3, 32, 200, 8),
-                                   (1, 16, 40, 5)],
-                         ids=["n16", "ragged-d-n8", "any-n"])
-def test_ssm_scan_kernel_bitwise(card, shape):
+#: the scan shapes (B, S, D, N) that stress the lanes kernel's schedule:
+#: S = 1, S under the ring's depth of 8 and not a multiple of it, S across
+#: the 64-step chunks of rounded c, a partial last d-block with B > 1 at
+#: 32, 16 and 8 rows a block, N = 8 and 16; and N = 5 (the scalar kernel)
+SCAN_SHAPES = {"n16": (2, 64, 8192 // 64, 16), "ragged-d-n8": (3, 32, 200, 8),
+               "any-n": (1, 16, 40, 5), "s1": (2, 1, 256, 16),
+               "s5-n8": (2, 5, 136, 8), "s13-partial-d": (3, 13, 201, 16),
+               "s70-partial-32-rows": (2, 70, 4100, 16),
+               "s21-partial-n8": (3, 21, 1000, 8)}
+#: operand layouts the wrapper must realign: a and c 4 bytes past a 16-byte
+#: boundary, b a non-contiguous view
+SCAN_LAYOUTS = ("contiguous", "offset4", "strided")
+
+
+def _scan_layout(t, layout):
+    """The same values as ``t`` in another memory layout."""
+    if layout == "offset4":
+        flat = torch.empty(t.numel() + 1, device=t.device)[1:]
+        assert flat.data_ptr() % 16 == 4
+        return flat.view(t.shape).copy_(t)
+    if layout == "strided":
+        return t.transpose(0, -1).contiguous().transpose(0, -1)
+    return t
+
+
+@pytest.mark.parametrize("layout", SCAN_LAYOUTS)
+@pytest.mark.parametrize("shape", list(SCAN_SHAPES.values()),
+                         ids=list(SCAN_SHAPES))
+def test_ssm_scan_kernel_bitwise(card, shape, layout):
     a, b, c = _scan_operands(card, shape, 4)
+    want_y, want_h = ssm_scan_ref(a, b, c)
+    a, c = _scan_layout(a, layout), _scan_layout(c, layout)
+    b = _scan_layout(b, "strided" if layout != "contiguous" else layout)
     chunk = shape[1]
     before = ssm_scan.launches
     y, h = ssm_scan(a, b, c, chunk=chunk, bd=shape[2])
     assert ssm_scan.launches == before + 1
-    want_y, want_h = ssm_scan_ref(a, b, c)
     _exact(y, want_y)
     _exact(h, want_h)
     # K5 with no rounding is K6
-    y5, h5 = ssm_scan_quantized(a, b, c, fmt=None, chunk=chunk)
+    y5, h5 = ssm_scan_quantized(a, b, c, fmt=None, chunk=chunk,
+                                bd=shape[2])
     _exact(y5, y)
     _exact(h5, h)
 
 
+@pytest.mark.parametrize("shape", [(2, 48, 136, 16), (2, 1, 256, 16),
+                                   (3, 13, 201, 16), (3, 21, 1000, 8)],
+                         ids=["n16", "s1", "s13-partial-d", "s21-partial-n8"])
 @pytest.mark.parametrize("out_fmt", [None, "bf16"], ids=["f32-out",
                                                          "bf16-out"])
 @pytest.mark.parametrize("fmt", [None, "bf16", "fp16", "fp8_e4m3"])
-def test_ssm_scan_quantized_kernel_bitwise(card, fmt, out_fmt):
+def test_ssm_scan_quantized_kernel_bitwise(card, fmt, out_fmt, shape):
     fmt = tf.REGISTRY[fmt] if fmt else None
     out_fmt = tf.REGISTRY[out_fmt] if out_fmt else None
-    a, b, c = _scan_operands(card, (2, 48, 136, 16), 5)
+    a, b, c = _scan_operands(card, shape, 5)
     before = ssm_scan_quantized.launches
-    y, h = ssm_scan_quantized(a, b, c, fmt=fmt, out_fmt=out_fmt, chunk=16,
-                              bd=136)
+    y, h = ssm_scan_quantized(a, b, c, fmt=fmt, out_fmt=out_fmt,
+                              chunk=shape[1], bd=shape[2])
     assert ssm_scan_quantized.launches == before + 1
     want_y, want_h = ssm_scan_quantized_ref(a, b, c, fmt=fmt,
                                             out_fmt=out_fmt)
     _exact(y, want_y)
     _exact(h, want_h)
+
+
+@pytest.mark.parametrize("layout", SCAN_LAYOUTS[1:])
+@pytest.mark.parametrize("fmt", ["bf16", "fp8_e4m3"])
+def test_ssm_scan_quantized_kernel_realigns_operands(card, fmt, layout):
+    fmt = tf.REGISTRY[fmt]
+    a, b, c = _scan_operands(card, (2, 13, 201, 16), 6)
+    want = ssm_scan_quantized_ref(a, b, c, fmt=fmt, out_fmt=tf.BF16)
+    a, b, c = (_scan_layout(t, layout) for t in (a, b, c))
+    got = ssm_scan_quantized(a, b, c, fmt=fmt, out_fmt=tf.BF16, chunk=13,
+                             bd=201)
+    for g, w in zip(got, want):
+        _exact(g, w)
 
 
 def test_ssm_lm_on_card_launches_k1_once(card):

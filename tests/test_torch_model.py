@@ -1,7 +1,9 @@
 """The port's LM against the JAX package on exported weights.
 
 The JAX ``tinyllama-1.1b`` (dense) and ``falcon-mamba-7b`` (ssm)
-``reduced()`` configs in float32 draw their parameters with the JAX PRNG;
+``reduced()`` configs in float32 (and, through ``apply``, ``prefill`` and
+three ``decode_step``s, the dense chatglm3-6b, starcoder2-7b and
+deepseek-67b) draw their parameters with the JAX PRNG;
 ``params_from_jax`` loads the same tree into the port, and both packages run
 the same token ids (numpy, from a seed) through ``apply``, ``prefill`` +
 ``decode_step`` x4, ``prefill_batched``, ``decode_scan`` and, for the ssm
@@ -18,6 +20,7 @@ The ssm family's policy reaches the unembed alone: one policy-routed
 matmul per forward (one K1 launch on the card).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -136,6 +139,48 @@ def test_decode_scan_matches_jax(pair, spec):
                                   np.asarray(jcache.length))
     for name in ("k", "v"):
         _close(tcache.data[name], jcache.data[name], spec, name)
+
+
+# ---------------------------------------------- the other dense configs
+#: dense configs with features tinyllama lacks: chatglm3-6b (half-width
+#: RoPE, qkv biases), starcoder2-7b (gelu MLP, qkv biases), deepseek-67b
+DENSE_ARCHS = ["chatglm3-6b", "starcoder2-7b", "deepseek-67b"]
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_pair(arch):
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    jm = JLM(jcfg)
+    jp = jm.init(jax.random.PRNGKey(2))
+    tm = LM(cfg, device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    return jm, jp, tm, tp
+
+
+@pytest.mark.parametrize("spec", [None, ("bf16", "fused")],
+                         ids=["native", "bf16-fused"])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_configs_match_jax(arch, spec):
+    """``apply``, ``prefill`` and three ``decode_step``s of each reduced
+    config, at the file's tolerances."""
+    jm, jp, tm, tp = _dense_pair(arch)
+    jpol, tpol = _policies(spec)
+    toks = np.random.default_rng(5).integers(0, 256, (2, 8))
+    jl, _ = jm.apply(jp, jnp.asarray(toks), policy=jpol)
+    tl, _ = tm.apply(tp, torch.from_numpy(toks), policy=tpol)
+    _close(tl, jl, spec, f"{arch} apply")
+    jlast, jc = jm.prefill(jp, jnp.asarray(toks), max_len=24, policy=jpol)
+    tlast, tc = tm.prefill(tp, torch.from_numpy(toks), max_len=24,
+                           policy=tpol)
+    _close(tlast, jlast, spec, f"{arch} prefill")
+    nxt = np.array(jnp.argmax(jlast, -1))[:, None]
+    for step in range(3):
+        jlog, jc = jm.decode_step(jp, jc, jnp.asarray(nxt), policy=jpol)
+        tlog, tc = tm.decode_step(tp, tc, torch.from_numpy(nxt),
+                                  policy=tpol)
+        _close(tlog, jlog, spec, f"{arch} decode_step {step}")
+        nxt = np.array(jnp.argmax(jlog[:, -1], -1))[:, None]
 
 
 def test_later_families_raise_not_implemented():

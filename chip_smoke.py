@@ -85,7 +85,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      4, K = 4096, N = the padded vocabulary, the table's transpose read
      through its strides) exactly equal to its plain version; K5's and
      K6's times at the scan shape beside their bound, and a profile of one
-     decode step.
+     decode step;
+  5. the paper's DSE core at full size on the card (it launches none of
+     K1-K6, so it has no launch window): ``calibrate`` (6000 float32 Adam
+     steps) within rtol 1e-3 of the same fit on the CPU, its Table I
+     residuals within the reference's envelope; ``calibrated_spec_mix``'s
+     270-candidate search picking the CPU's mixture and ``fig2c_penalties``
+     bitwise the CPU's, its reductions within 0.05 of the paper's 37% / 57%;
+     the SP+DP Fig. 3/4 sweep (9,240 points with latency) within rtol 1e-12
+     of the numpy backend with the same Pareto sets, and the anchored
+     Table I rows exact to 1e-6; ``tune_split`` of both precisions over the
+     288-structure enumeration at the ``TUNE_*`` grids picking the numpy
+     backend's design and operating point, the fabricated units' Table I
+     split, and a same-shape retune hitting the sweep cache; ``bb_study``
+     within the paper's body-bias bounds.  Each stage's seconds are printed
+     beside the card's name and power limit.
 
 Every line but the last two is a JSON record or the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line; the line before the last
@@ -1561,6 +1575,167 @@ def profile_decode(model, params, rng):
 
 
 # ---------------------------------------------------------------------------
+# the paper's DSE core: gates from the JAX package's own tests
+# (tests/test_golden_fpmax.py's Table I residual envelope and ANCHOR_RTOL,
+# tests/test_latency_and_dse.py's body-bias bounds)
+CALIBRATE_RTOL = 1e-3
+DSE_RTOL = 1e-12
+ANCHOR_RTOL = 1e-6
+FIT_ENVELOPE = dict(freq_rel_err=0.32, power_rel_err=0.15,
+                    area_rel_err=0.33)
+# the electrical grids of tests/test_autotune.py for the fabricated units
+FAB_VDD = np.round(np.arange(0.55, 1.101, 0.05), 3)
+FAB_VBB = np.round(np.arange(0.0, 1.21, 0.3), 2)
+
+
+def dse_full_size(dev, smi):
+    """The DSE core on the card against the CPU and the numpy backend;
+    returns each stage's seconds."""
+    from repro_torch.core import autotune as at
+    from repro_torch.core import body_bias, dse, energy_model, latency_sim
+    from repro_torch.core.fpu_arch import DP_CMA, FABRICATED, TABLE_I
+    seconds = {}
+
+    def timed(stage, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[stage] = time.perf_counter() - t0
+        emit({"phase": "dse", "stage": stage, "seconds": seconds[stage],
+              "card": smi})
+        return out
+
+    # the phase is host-bound: its time is launches x host time a launch
+    x = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x = x + 1
+    torch.cuda.synchronize()
+    emit({"phase": "dse", "host_us_per_launch":
+          (time.perf_counter() - t0) / 2000 * 1e6, "what": "x + 1, eager"})
+    params = timed("calibrate", lambda: energy_model.calibrate(device=dev))
+    cpu_params = timed("calibrate_cpu",
+                       lambda: energy_model.calibrate(device="cpu"))
+    rel = np.abs(np.array(params.values) / np.array(cpu_params.values) - 1)
+    emit({"phase": "dse", "check": "calibrate", "params": repr(params),
+          "max_rel_vs_cpu": float(rel.max())})
+    check(rel.max() <= CALIBRATE_RTOL, f"calibrate on the card is "
+          f"{rel.max():.3g} from the CPU's fit (rtol {CALIBRATE_RTOL})")
+    report = energy_model.calibration_report(params, device=dev)
+    for name, row in report.items():
+        for key, bound in FIT_ENVELOPE.items():
+            check(abs(row[key]) <= bound, f"{name} {key} {row[key]:.3f} "
+                  f"outside +-{bound}")
+        gw = row["gflops_per_w_pred"] / row["gflops_per_w_meas"] - 1.0
+        gm = row["gflops_per_mm2_pred"] / row["gflops_per_mm2_meas"] - 1.0
+        check(abs(gw) <= 0.20 and abs(gm) <= 0.48,
+              f"{name} efficiency residuals {gw:.3f} / {gm:.3f}")
+
+    latency_sim.clear_penalty_cache()
+    mix = timed("spec_mix", lambda: latency_sim.calibrated_spec_mix(
+        device=dev))
+    cpu_mix = timed("spec_mix_cpu", lambda: latency_sim.calibrated_spec_mix(
+        device="cpu"))
+    check(mix == cpu_mix, f"mixture search: card {mix} != CPU {cpu_mix}")
+    latency_sim.clear_penalty_cache()
+    fig2c = latency_sim.fig2c_penalties(mix, device=dev)
+    latency_sim.clear_penalty_cache()
+    cpu_fig2c = latency_sim.fig2c_penalties(mix, device="cpu")
+    emit({"phase": "dse", "check": "fig2c", "mix": str(mix), **fig2c})
+    check(fig2c == cpu_fig2c, f"fig2c penalties: card {fig2c} != CPU "
+          f"{cpu_fig2c}")
+    check(abs(fig2c["reduction_vs_fwd"] - 0.37) < 0.05 and
+          abs(fig2c["reduction_vs_nofwd"] - 0.57) < 0.05,
+          f"fig2c reductions {fig2c} not within 0.05 of 0.37 / 0.57")
+
+    latency_sim.clear_penalty_cache()
+    space = dse.enumerate_structures("sp") + dse.enumerate_structures("dp")
+    res = timed("sweep_fig34", lambda: dse.sweep_arrays(
+        space, params, mix=mix, with_latency=True, device=dev))
+    ref = dse.sweep_arrays(space, params, mix=mix, with_latency=True,
+                           backend="numpy", device=dev)
+    check(len(res) == 9240, f"{len(res)} sweep points, expected 9240")
+    worst = max(float(np.max(np.abs(res.metrics[k] / ref.metrics[k] - 1)))
+                for k in ref.metrics)
+    check(list(res.metrics) == list(ref.metrics) and worst <= DSE_RTOL,
+          f"card sweep {worst:.3g} from the numpy backend (rtol {DSE_RTOL})")
+    for what in ("throughput_pareto_mask", "latency_pareto_mask"):
+        check(np.array_equal(getattr(res, what)(), getattr(ref, what)()),
+              f"{what} differs between the card and the numpy backend")
+    fab = list(FABRICATED.values())
+    anch = dse.sweep_arrays(fab, params, sorted({TABLE_I[d.name].vdd
+                                                 for d in fab}), [1.2],
+                            anchored=True, device=dev)
+    for i, d in enumerate(fab):
+        m = TABLE_I[d.name]
+        r = int(np.nonzero((anch.design_index == i) & (anch.vdd == m.vdd))
+                [0][0])
+        for key, want in (("freq_ghz", m.freq_ghz), ("p_leak_mw", m.leak_mw),
+                          ("p_total_mw", m.power_mw),
+                          ("area_mm2", m.area_mm2)):
+            got = anch.metrics[key][r]
+            check(abs(got / want - 1) <= ANCHOR_RTOL,
+                  f"anchored {d.name} {key} {got} != Table I {want}")
+    emit({"phase": "dse", "check": "sweep_fig34", "points": len(res),
+          "max_rel_vs_numpy": worst,
+          "throughput_pareto": int(res.throughput_pareto_mask().sum()),
+          "latency_pareto": int(res.latency_pareto_mask().sum()),
+          "best_throughput": res.point(res.argbest_throughput()).key,
+          "best_latency": res.point(res.argbest_latency()).key})
+
+    cache = energy_model.SweepExecutableCache()
+    for precision in ("sp", "dp"):
+        pair = timed(f"tune_split_{precision}", lambda: at.tune_split(
+            precision, params=params, cache=cache, device=dev))
+        for r in pair:
+            got = (r.design.name, r.vdd, r.vbb)
+            want = numpy_tune(r.profile, precision, params, dev)
+            check(got == want, f"tune {r.profile.name} {precision}: card "
+                  f"{got} != numpy backend {want}")
+        check(pair[0].design.name != pair[1].design.name,
+              f"{precision}: throughput and latency optima coincide")
+        emit({"phase": "dse", "check": f"tune_split_{precision}",
+              "results": [r.as_dict() for r in pair],
+              "cache": dict(cache.stats)})
+    check(cache.stats == dict(hits=3, misses=1, executables=1),
+          f"same-shape tunes missed the sweep cache: {cache.stats}")
+    for precision in ("sp", "dp"):
+        units = [d for d in fab if d.precision == precision]
+        for profile, style in ((at.GEMM_STREAM, "fma"),
+                               (at.DEPENDENT_CHAIN, "cma")):
+            r = at.autotune(profile, precision, designs=units, params=params,
+                            vdd_grid=FAB_VDD, vbb_grid=FAB_VBB,
+                            anchored=True, cache=cache, device=dev)
+            check(r.design.name == f"{precision}_{style}",
+                  f"{profile.name} picked {r.design.name} among the "
+                  f"fabricated {precision} units")
+
+    s = body_bias.bb_study(DP_CMA, params, vdd=0.6)
+    emit({"phase": "dse", "check": "bb_study", **s})
+    check(0.10 < s["bb_energy_saving"] < 0.35 and
+          2.3 < s["low_util_static_ratio"] < 4.0 and
+          1.2 < s["low_util_adaptive_ratio"] < 1.9,
+          f"bb_study(DP_CMA, vdd=0.6) outside the paper's bounds: {s}")
+    emit({"phase": "dse", "seconds": seconds, "card": smi})
+    return seconds
+
+
+def numpy_tune(profile, precision, params, dev):
+    """``autotune``'s pick with the sweep on the numpy backend (the
+    penalties come from the cache the card's tune filled)."""
+    from repro_torch.core import autotune as at
+    from repro_torch.core import dse
+    res = dse.sweep_arrays(dse.enumerate_structures_full(precision), params,
+                           at.TUNE_VDD_GRID, at.TUNE_VBB_GRID,
+                           mix=profile.mix(), with_latency=True,
+                           backend="numpy", device=dev)
+    at.attach_workload_metrics(res, profile, params)
+    i = res.argbest(profile.objective())
+    return res.design_of(i).name, float(res.vdd[i]), float(res.vbb[i])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1668,6 +1843,12 @@ def main():
                    for path, counts in paths.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+
+    # the paper's DSE core: no kernel of K1-K6, so no launch window
+    del smodel, sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    dse_full_size(dev, smi)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})

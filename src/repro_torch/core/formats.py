@@ -134,3 +134,29 @@ def quantize(x: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
                     torch.copysign(torch.full_like(y, float("inf")), y), y)
     y = torch.where(torch.isfinite(x), y, x)
     return torch.where(x == 0, x, y)
+
+
+def quantize_stochastic(x: torch.Tensor, fmt: FloatFormat,
+                        generator: torch.Generator | None = None, *,
+                        u: torch.Tensor | None = None) -> torch.Tensor:
+    """Stochastic rounding onto ``fmt`` (used by the compressed-gradient
+    path): floor(x / ulp + u) * ulp with ``u`` uniform in [0, 1).
+
+    ``u`` (f32, x's shape) is drawn from ``generator`` on x's device unless
+    the caller passes it; given the JAX package's uniforms for its key, the
+    result is op for op the reference's.  The ulp is an exact power of two
+    built from exponent bits (as float64, then float32: powers below 2**-126
+    become f32 subnormals, exactly).
+    """
+    x = x.to(torch.float32)
+    if u is None:
+        u = torch.rand(x.shape, generator=generator, dtype=torch.float32,
+                       device=x.device)
+    e = _unbiased_exp_f32(x)
+    q_exp = e.clamp(fmt.emin, fmt.emax)
+    k = (q_exp - fmt.man_bits).to(torch.int64).clamp(-1022, 1023)
+    scale = ((k + 1023) << 52).view(torch.float64).to(torch.float32)
+    q = torch.floor(x / scale + u.to(torch.float32))
+    y = (q * scale).clamp(-fmt.max_finite, fmt.max_finite)
+    y = torch.where(torch.isfinite(x), y, x)
+    return torch.where(x == 0, x, y)

@@ -1,13 +1,16 @@
 """Named transprecision format registry (counterpart of
 ``repro.numerics.registry``).
 
-Format lookup and FPGen (exp, man) points.  The per-format energy, area and
-delay scales of the JAX registry come from the calibrated energy model and
-arrive with the DSE slice of the port.
+Format lookup and FPGen (exp, man) points, and each format's energy, area
+and delay scales, computed through
+``repro_torch.core.energy_model.format_scale_factors`` (the same calibrated
+feature model the sweeps use, so registry scales and tune results can never
+disagree).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Iterator, Optional, Tuple
 
 from repro_torch.core.formats import (BF16, FP8_E4M3, FP8_E5M2, FP16, FP32,
@@ -16,8 +19,15 @@ from repro_torch.core.formats import (BF16, FP8_E4M3, FP8_E5M2, FP16, FP32,
 
 @dataclasses.dataclass(frozen=True)
 class FormatSpec:
-    """One registered format: the numeric grid plus its host precision
-    class (the narrowest fabricated datapath family, sp or dp)."""
+    """One registered format: the numeric grid plus its datapath economics.
+
+    ``energy_scale``/``area_scale``/``delay_scale`` are relative to the host
+    class's native format (fp32 for sp, fp64 for dp) on the canonical fused
+    structure; they are *indicative* — a format-aware tune re-derives the
+    exact numbers per structure through ``FPUDesign.with_format`` — and are
+    lazily computed on first access (the scale hook needs the calibrated
+    energy model, fitted on the card).
+    """
 
     fmt: FloatFormat
     precision_class: str
@@ -37,6 +47,33 @@ class FormatSpec:
         native_exp = 8 if self.precision_class == "sp" else 11
         return (self.fmt.man_bits + 1 == native_sig
                 and self.fmt.exp_bits == native_exp)
+
+    @functools.cached_property
+    def _scales(self) -> Dict[str, float]:
+        # cached_property writes the instance __dict__ directly, so it is
+        # frozen-dataclass safe; the calibrated model runs once per spec
+        from repro_torch.core.energy_model import format_scale_factors
+        return format_scale_factors(self.fmt, precision=self.precision_class)
+
+    @property
+    def energy_scale(self) -> float:
+        return self._scales["energy"]
+
+    @property
+    def area_scale(self) -> float:
+        return self._scales["area"]
+
+    @property
+    def delay_scale(self) -> float:
+        return self._scales["delay"]
+
+    def as_dict(self) -> Dict[str, object]:
+        s = self._scales
+        return dict(name=self.name, exp_bits=self.fmt.exp_bits,
+                    man_bits=self.fmt.man_bits, bits=self.bits,
+                    precision_class=self.precision_class,
+                    energy_scale=s["energy"], area_scale=s["area"],
+                    delay_scale=s["delay"])
 
 
 def _class_of(fmt: FloatFormat) -> str:

@@ -1,3 +1,4 @@
-"""``repro_torch.roofline`` — the roofline report type (counterpart of the
-``RooflineReport`` part of ``repro.roofline.analysis``; the HLO parsing
-has no PyTorch counterpart and stays unported)."""
+"""``repro_torch.roofline`` — the roofline report type and the measured
+utilizations of dry-run artifacts (counterpart of
+``repro.roofline.analysis``; the HLO parsing has no PyTorch counterpart and
+stays unported)."""

@@ -4,15 +4,16 @@
   memory     = bytes / hbm_bw
   collective = collective_bytes / link_bw
 
-Counterpart of ``repro.roofline.analysis.RooflineReport``, the dataclass and
-its properties only.  Its default rates are those of one NVIDIA H100 SXM
+Counterpart of ``repro.roofline.analysis``: the ``RooflineReport`` dataclass
+and its properties, and the measured utilizations read from dry-run JSON
+artifacts.  The report's default rates are those of one NVIDIA H100 SXM
 from NVIDIA's data sheet (dense bf16 tensor-core peak, HBM3 rate, NVLink
 rate each way), not the JAX package's TPU constants.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 #: NVIDIA H100 SXM data sheet: dense bf16 tensor-core operations/s, HBM3
 #: bytes/s, and NVLink bytes/s each way (900 GB/s in all)
@@ -86,3 +87,70 @@ class RooflineReport:
             "useful_flop_ratio": self.useful_flop_ratio,
             "roofline_fraction": self.roofline_fraction,
         }
+
+
+# ---------------------------------------------------------------------------
+# Measured utilizations (feeds core.autotune.profile_from_config)
+# ---------------------------------------------------------------------------
+#: parsed utilization tables memoized per results_dir, invalidated when the
+#: artifact files' (path, mtime, size) signature changes
+_UTILIZATION_CACHE: Dict[str, tuple] = {}
+
+
+def measured_utilizations(results_dir: str = "results"
+                          ) -> Dict[tuple, float]:
+    """(arch, shape) -> measured roofline fraction from dry-run artifacts.
+
+    Scans ``results_dir/dryrun_*.json`` (written by the JAX package's
+    ``launch.dryrun``) and returns, per (arch, shape) cell, the best
+    ``roofline_fraction`` achieved across meshes — the fraction of the
+    compute roofline the cell actually sustains, i.e. the FPU activity the
+    chip autotuner should tune for instead of hand-set constants.
+    Missing/failed cells are skipped; an absent directory yields an empty
+    table.  Parsed tables are memoized per directory and refreshed when the
+    artifacts change on disk.
+    """
+    import glob
+    import json
+    import os
+
+    paths = sorted(glob.glob(os.path.join(results_dir, "dryrun_*.json")))
+
+    def _stat(p):
+        try:
+            st = os.stat(p)
+            return (p, st.st_mtime_ns, st.st_size)
+        except OSError:
+            return (p, None, None)
+
+    sig = tuple(_stat(p) for p in paths)
+    cached = _UTILIZATION_CACHE.get(results_dir)
+    if cached is not None and cached[0] == sig:
+        return dict(cached[1])
+
+    out: Dict[tuple, float] = {}
+    for path in paths:
+        try:
+            with open(path) as f:
+                rows = json.load(f)
+        except (OSError, ValueError):
+            continue
+        for key, row in rows.items():
+            if not isinstance(row, dict) or row.get("status") != "ok":
+                continue
+            if "|" not in key:
+                continue
+            arch, shape = key.split("|", 1)
+            frac = row.get("roofline_fraction")
+            if frac is None:
+                continue
+            cell = (arch, shape)
+            out[cell] = max(out.get(cell, 0.0), float(frac))
+    _UTILIZATION_CACHE[results_dir] = (sig, out)
+    return dict(out)
+
+
+def measured_utilization(arch: str, shape: str,
+                         results_dir: str = "results") -> Optional[float]:
+    """Best measured roofline fraction for one cell, or None if unmeasured."""
+    return measured_utilizations(results_dir).get((arch, shape))

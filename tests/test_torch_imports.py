@@ -56,7 +56,12 @@ def test_slice_modules_are_scanned():
                 "models/numerics.py", "serve/engine.py",
                 "benchgen/__init__.py", "benchgen/spec.py",
                 "benchgen/machine.py", "benchgen/bench.py",
-                "roofline/__init__.py", "roofline/analysis.py"):
+                "roofline/__init__.py", "roofline/analysis.py",
+                "core/__init__.py", "core/formats.py", "core/fpu_arch.py",
+                "core/objective.py", "core/energy_model.py",
+                "core/latency_sim.py", "core/dse.py", "core/body_bias.py",
+                "core/localsearch.py", "core/trace.py", "core/autotune.py",
+                "numerics/registry.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -92,6 +97,44 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # the same calls run when the caller asks for the CPU
     assert LM(cfg, device="cpu").device.type == "cpu"
     assert emulated_matmul(a, a.T, fmt="bf16", device="cpu").shape == (4, 4)
+
+
+def test_dse_entry_points_raise_without_cuda(monkeypatch):
+    """The DSE core's device work (the fit, the batched model, the latency
+    simulator) runs on the card unless the caller passes a device; its
+    numpy routes need none."""
+    from repro_torch.core import autotune, dse, energy_model, latency_sim
+    from repro_torch.core.fpu_arch import FABRICATED
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = energy_model.TechParams(tuple(
+        s[1] for s in energy_model._PARAM_SPEC))
+    units = list(FABRICATED.values())
+    mix = latency_sim.SpecMix(0.3, 0.1, 0.0, 0.3, n_ops=64, seed=123)
+    calls = [lambda: energy_model.calibrate(steps=1),
+             lambda: energy_model.predict_batch(units, params, [0.8], [0.0]),
+             lambda: energy_model.predict_points(units, params),
+             lambda: energy_model.calibration_report(params),
+             lambda: energy_model.SweepExecutableCache().predict(
+                 params.as_array(), *energy_model.feature_matrix(units),
+                 np.array([0.8]), np.array([0.0]), 1.0),
+             lambda: latency_sim.penalties_for_waits([(2, 4)], mix),
+             lambda: latency_sim.fig2c_reductions_batch([mix]),
+             lambda: latency_sim.calibrated_spec_mix(),
+             lambda: dse.sweep_arrays(units, params),
+             lambda: autotune.autotune(autotune.GEMM_STREAM, "sp",
+                                       designs=units, params=params)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # the numpy routes and the CPU on request
+    out = energy_model.predict_batch(units, params, [0.8], [0.0],
+                                     backend="numpy")
+    assert out["freq_ghz"].shape == (4, 1, 1)
+    assert energy_model.predict_batch(units, params, [0.8], [0.0],
+                                      device="cpu")["freq_ghz"].shape == \
+        (4, 1, 1)
+    assert latency_sim.penalties_for_waits([(2, 4)], mix,
+                                           device="cpu").shape == (1,)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -61,7 +61,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      attention (``policy_flash_attention`` with no policy) on the same f32
      operands; then K4's times at that shape beside its bound, its plain
      version's and ``scaled_dot_product_attention``'s;
-  3b. benchgen on the card: ``calibrate()`` measures the card's rates,
+  3b. the chip facade on tinyllama-1.1b, counters set to 0 just before:
+     ``BatchedServer`` with a ``ChipPolicy`` over the fabricated SP+DP die
+     (calibrated on the card), 8 slots split into one fleet per decode
+     unit, deadline routing and an accuracy class, serves 12 requests, one
+     per (precision sp/dp/None, deadline or not, accuracy_slo 1e-2/None);
+     each request's unit equals ``admission_unit`` computed apart, its
+     energy equals prompt tokens x flops/token on the prefill unit plus
+     decoded tokens on its unit (rel 1e-9), ``energy_report`` equals the
+     sum over requests, every token passes the ``serve`` gate, and an
+     unmeetable SLO is rejected as ``accuracy_slo_unmeetable``; one 4x128
+     prefill under the prefill unit's and one under the decode unit's
+     routed numerics (bf16 fused, bf16 cascade_fwd), 155 K1 launches each,
+     bitwise equal to ``EmulatedPolicy`` with that format and style;
+  3c. benchgen on the card: ``calibrate()`` measures the card's rates,
      then, counters set to 0 just before and read just after,
      ``validate`` of the default specs and two full-width flash specs
      against those rates, in which K1, K2, K4 and K5 must each launch;
@@ -87,8 +100,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      K6's times at the scan shape beside their bound, and a profile of one
      decode step;
   5. the paper's DSE core at full size on the card (it launches none of
-     K1-K6, so it has no launch window): ``calibrate`` (6000 float32 Adam
-     steps) within rtol 1e-3 of the same fit on the CPU, its Table I
+     K1-K6, so it has no launch window): the chip phase's ``calibrate``
+     (6000 float32 Adam steps) within rtol 1e-3 of the same fit on the CPU, its Table I
      residuals within the reference's envelope; ``calibrated_spec_mix``'s
      270-candidate search picking the CPU's mixture and ``fig2c_penalties``
      bitwise the CPU's, its reductions within 0.05 of the paper's 37% / 57%;
@@ -98,8 +111,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      288-structure enumeration at the ``TUNE_*`` grids picking the numpy
      backend's design and operating point, the fabricated units' Table I
      split, and a same-shape retune hitting the sweep cache; ``bb_study``
-     within the paper's body-bias bounds.  Each stage's seconds are printed
-     beside the card's name and power limit.
+     within the paper's body-bias bounds; the chip facade's numerics and
+     tuning: the exact ``AccuracyModel`` over the SP and DP ladders (a
+     monotone ladder), the float64 softfloat on the card bitwise the CPU's
+     on 2**20 normal-range triples per format and ``dp_fma`` exact against
+     ``Fraction`` on 4096 of them, ``emulated_dot`` on the card equal to
+     the oracle's exact steps on its own samples for every (format,
+     style), the format-joint ``autotune`` (a loose SLO below SP, a tight
+     one at fp32, an unmeetable one refused) and ``tune_chip`` over
+     tinyllama-1.1b's phases picking on the card what it picks on the CPU.
+     Each stage's seconds are printed beside the card's name and power
+     limit.
 
 Every line but the last two is a JSON record or the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line; the line before the last
@@ -136,6 +158,15 @@ SCAN_VS_LAYER = 1e-5
 SERVE = dict(slots=4, max_len=256, requests=8, prompt_lo=16, prompt_hi=128,
              new_tokens=32)
 EMU = dict(batch=4, prompt=128, steps=16)
+# the chip-routed server: slots split into one fleet per decode unit of the
+# fabricated SP+DP die; the requests cycle through every (precision,
+# deadline, accuracy class) combination
+CHIP = dict(slots=8, max_len=256, prompt_lo=16, prompt_hi=128, new_tokens=32,
+            precisions=("sp", "dp", None), deadlines=(False, True),
+            slos=(None, 1e-2), accuracy_fleets=(1e-2,), unmeetable=1e-30)
+# each request's energy against the per-token sum (the JAX package's own
+# bound between bulk and per-token charging, tests/test_serve_fused.py)
+ENERGY_REL = 1e-9
 # a served token is right where LM.apply on the same prefix puts its logit
 # within this share of max |logit| of the top one (bf16 keeps 8 significant
 # bits: a few roundings at the largest logit), since the server's bucketed prefill and decode steps run
@@ -1018,6 +1049,149 @@ def user_calls_full_width(model, params):
           "pallas_equals_fused": True, "shape": list(x.shape) + [w.shape[1]]})
 
 
+def chip_full_width(model, params, rng, tech):
+    """The chip facade on tinyllama-1.1b at full width: ``BatchedServer``
+    with a ``ChipPolicy`` over the fabricated SP+DP die routes requests of
+    every (precision, deadline, accuracy class) combination to their
+    fleets and charges their energy; every routed unit, energy and served
+    token is gated.  Then one prefill under the prefill unit's and one
+    under the decode unit's routed numerics, each K1 launch counted and
+    the logits bitwise those of ``EmulatedPolicy`` with the same format and
+    style."""
+    from repro_torch.core import chip
+    from repro_torch.kernels.fused import fused_qmm
+    from repro_torch.models.numerics import EmulatedPolicy
+    from repro_torch.serve import BatchedServer, Request, RequestRejected
+    cfg, dev, c = model.cfg, model.device, CHIP
+    policy = chip.ChipPolicy(chip.fabricated_chip(None, tech), tech)
+    server = BatchedServer(model, params, slots=c["slots"],
+                           max_len=c["max_len"], chip_policy=policy,
+                           deadline_routing=True,
+                           accuracy_fleets=c["accuracy_fleets"])
+    combos = [(p, d, a) for p in c["precisions"] for d in c["deadlines"]
+              for a in c["slos"]]
+    lens = rng.integers(c["prompt_lo"], c["prompt_hi"] + 1, len(combos))
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    far = time.monotonic() + 1e6  # a deadline class, never an expiry
+    reqs = [Request(uid=i, prompt=pr, max_new_tokens=c["new_tokens"],
+                    deadline_s=far if d else None, precision=p,
+                    accuracy_slo=a)
+            for i, (pr, (p, d, a)) in enumerate(zip(prompts, combos))]
+    bad = Request(uid=len(reqs), prompt=prompts[0], max_new_tokens=2,
+                  accuracy_slo=c["unmeetable"])
+    try:
+        server.submit(bad)
+        fail("an unmeetable accuracy SLO was admitted")
+    except RequestRejected as e:
+        check(e.code == "accuracy_slo_unmeetable" and bad.rejected,
+              f"unmeetable SLO rejected as {e.code}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        server.submit(r)
+    done = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(done) == len(reqs), "chip server did not finish every request")
+    # routing, from a policy of its own (no shared route cache)
+    judge = chip.ChipPolicy(chip.fabricated_chip(None, tech), tech)
+    fpt = server.flops_per_token
+    check(fpt == 2.0 * cfg.active_param_count(), f"flops/token {fpt}")
+    per_unit, worst_rel = {}, 0.0
+    for r, (p, d, a) in zip(reqs, combos):
+        want = judge.admission_unit(
+            precision=p or cfg.numerics_precision,
+            deadline_class="interactive" if d else "bulk",
+            accuracy_slo=a).name
+        check(r.routed_unit == want, f"request {r.uid} routed to "
+              f"{r.routed_unit}, admission_unit says {want}")
+        check(r.done and not r.expired and
+              len(r.output) == c["new_tokens"],
+              f"request {r.uid}: {len(r.output)} tokens")
+        pre = judge.unit_for_phase("prefill",
+                                   precision=p or cfg.numerics_precision)
+        dec = judge.spec.unit(r.routed_unit)
+        parts = {pre.name: len(r.prompt) * fpt * pre.e_per_flop_pj * 1e-12}
+        parts[dec.name] = parts.get(dec.name, 0.0) + \
+            (len(r.output) - 1) * fpt * dec.e_per_flop_pj * 1e-12
+        check(sorted(r.unit_energy_j) == sorted(parts),
+              f"request {r.uid} charged {sorted(r.unit_energy_j)}, "
+              f"expected {sorted(parts)}")
+        for unit, e in parts.items():
+            rel = abs(r.unit_energy_j[unit] / e - 1)
+            worst_rel = max(worst_rel, rel)
+            check(rel <= ENERGY_REL, f"request {r.uid} {unit}: "
+                  f"{r.unit_energy_j[unit]} J, per-token sum {e} J")
+            per_unit[unit] = per_unit.get(unit, 0.0) + r.unit_energy_j[unit]
+        rel = abs(r.energy_j / sum(parts.values()) - 1)
+        worst_rel = max(worst_rel, rel)
+        check(rel <= ENERGY_REL, f"request {r.uid}: {r.energy_j} J")
+    report = server.energy_report()
+    check(sorted(report["per_unit_j"]) == sorted(per_unit),
+          f"energy_report units {sorted(report['per_unit_j'])}")
+    for unit, e in per_unit.items():
+        check(abs(report["per_unit_j"][unit] / e - 1) <= ENERGY_REL,
+              f"energy_report {unit} != the requests' sum")
+    check(abs(report["total_j"] / sum(per_unit.values()) - 1) <= ENERGY_REL,
+          "energy_report total != the requests' sum")
+    # every served token against LM.apply on its own prefix
+    worst, exact = 0.0, 0
+    for r, prompt in zip(reqs, prompts):
+        shortfall, scale, _, _ = stream_vs_apply(model, params, prompt,
+                                                 r.output)
+        over = shortfall / (NEAR_TIE * scale)
+        check(int((over > 1).sum()) == 0, f"chip request {r.uid}: a token "
+              f"falls short of LM.apply's top logit by more than "
+              f"{NEAR_TIE} of max |logit|")
+        worst = max(worst, float(over.max()))
+        exact += int((shortfall == 0).sum())
+    # the routed units' numerics through K1
+    B, S = EMU["batch"], EMU["prompt"]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device=dev)
+    per_fwd = 7 * cfg.n_layers + 1
+    numerics = {}
+    for phase, unit, style in (("prefill", "sp_fma", "fused"),
+                               ("decode", "sp_cma", "cascade_fwd")):
+        pol = policy.numerics_for_phase(phase,
+                                        precision=cfg.numerics_precision,
+                                        emulate=True)
+        check(pol.fpu_design.name == unit and pol.fmt.name == "bf16" and
+              pol.accum_style == style and pol.emulate,
+              f"{phase} routed to {pol.fpu_design.name} "
+              f"{pol.fmt.name}/{pol.accum_style}")
+        c0 = fused_qmm.launches
+        routed, _ = model.prefill(params, toks, policy=pol)
+        torch.cuda.synchronize()
+        launches = fused_qmm.launches - c0
+        check(launches == per_fwd, f"{phase} routed prefill: {launches} K1 "
+              f"launches, expected {per_fwd}")
+        plain, _ = model.prefill(params, toks,
+                                 policy=EmulatedPolicy("bf16", style))
+        check(torch.equal(routed, plain), f"{phase} routed prefill differs "
+              f"from EmulatedPolicy(bf16, {style})")
+        check(bool(torch.isfinite(routed).all()), "non-finite logits")
+        numerics[phase] = dict(unit=unit, fmt="bf16", style=style,
+                               k1_launches=launches,
+                               bitwise_equal_emulated_policy=True)
+    n_tok = sum(len(r.output) for r in reqs)
+    rr = server.run_report()
+    emit({"phase": "chip", "arch": cfg.name, "dtype": cfg.dtype,
+          "chip": policy.spec.name, "slots": c["slots"],
+          "fleets": {k: list(v) for k, v in server._fleets.items()},
+          "requests": len(reqs), "prompt_lens": [int(n) for n in lens],
+          "new_tokens": c["new_tokens"], "wall_s": wall,
+          "tokens_per_s": n_tok / wall, "dispatches": rr["dispatches"],
+          "host_syncs": rr["host_syncs"],
+          "routed": {r.uid: r.routed_unit for r in reqs},
+          "unit_rel_err": {u.name: u.rel_err() for u in policy.spec.units},
+          "unit_e_pj": {u.name: u.e_per_flop_pj for u in policy.spec.units},
+          "energy_report": report, "energy_worst_rel_vs_sum": worst_rel,
+          "rejected": "accuracy_slo_unmeetable",
+          "tokens_checked": n_tok, "tokens_at_apply_argmax": exact,
+          "worst_shortfall_over_limit": worst, "numerics": numerics})
+
+
 def serve_f32(cfg, params, dev):
     """The served-token check of ``serve_full_width`` on the same model and
     requests computed in float32 (the bf16 weights widened, exactly), held
@@ -1586,15 +1760,24 @@ FIT_ENVELOPE = dict(freq_rel_err=0.32, power_rel_err=0.15,
 # the electrical grids of tests/test_autotune.py for the fabricated units
 FAB_VDD = np.round(np.arange(0.55, 1.101, 0.05), 3)
 FAB_VBB = np.round(np.arange(0.0, 1.21, 0.3), 2)
+# the softfloat on the card: normal-range operand triples per format, and
+# the subsample dp_fma is held to the exact Fraction value on
+SOFTFLOAT = dict(n=1 << 20, exact=4096,
+                 formats=("fp32", "tf32", "bf16", "fp16", "fp8_e4m3",
+                          "fp8_e5m2"))
+# the format-joint tunes: a loose SLO downshifts below SP, a tight one
+# keeps fp32, an unmeetable one has no feasible point
+SLO_LOOSE, SLO_TIGHT, SLO_UNMEETABLE = 1e-2, 1e-8, 1e-12
 
 
-def dse_full_size(dev, smi):
+def dse_full_size(dev, smi, params, fit_s):
     """The DSE core on the card against the CPU and the numpy backend;
-    returns each stage's seconds."""
+    ``params`` is the card's ``calibrate`` fit, which took ``fit_s``
+    seconds in the chip phase.  Returns each stage's seconds."""
     from repro_torch.core import autotune as at
     from repro_torch.core import body_bias, dse, energy_model, latency_sim
     from repro_torch.core.fpu_arch import DP_CMA, FABRICATED, TABLE_I
-    seconds = {}
+    seconds = {"calibrate": fit_s}
 
     def timed(stage, fn):
         torch.cuda.synchronize()
@@ -1615,7 +1798,6 @@ def dse_full_size(dev, smi):
     torch.cuda.synchronize()
     emit({"phase": "dse", "host_us_per_launch":
           (time.perf_counter() - t0) / 2000 * 1e6, "what": "x + 1, eager"})
-    params = timed("calibrate", lambda: energy_model.calibrate(device=dev))
     cpu_params = timed("calibrate_cpu",
                        lambda: energy_model.calibrate(device="cpu"))
     rel = np.abs(np.array(params.values) / np.array(cpu_params.values) - 1)
@@ -1718,8 +1900,147 @@ def dse_full_size(dev, smi):
           2.3 < s["low_util_static_ratio"] < 4.0 and
           1.2 < s["low_util_adaptive_ratio"] < 1.9,
           f"bb_study(DP_CMA, vdd=0.6) outside the paper's bounds: {s}")
+    chip_dse(dev, params, timed)
     emit({"phase": "dse", "seconds": seconds, "card": smi})
     return seconds
+
+
+def chip_dse(dev, params, timed):
+    """The chip facade's numerics and tuning at full size: the accuracy
+    oracle over the SP and DP ladders (host), the float64 softfloat on the
+    card against the CPU and the exact Fraction values, ``emulated_dot``
+    on the oracle's own samples against the oracle, the format-joint
+    ``autotune`` and ``tune_chip`` picking on the card what they pick on the
+    CPU."""
+    from fractions import Fraction
+    from repro_torch.core import autotune as at
+    from repro_torch.core import chip, energy_model, latency_sim
+    from repro_torch.core import softfloat as sf
+    from repro_torch.numerics import (DEFAULT_ACCURACY_MODEL, REGISTRY,
+                                      dot_exact_steps, emulated_dot,
+                                      get_format, rne_fraction)
+    styles = ("fused", "cascade", "cascade_fwd")
+    ladder = {p: [f.name for f in REGISTRY.formats_for(p)]
+              for p in ("sp", "dp")}
+    pairs = sorted({(f, st) for fs in ladder.values() for f in fs
+                    for st in styles})
+    errs = timed("accuracy_model", lambda: {
+        f"{f}/{st}": DEFAULT_ACCURACY_MODEL.rel_err(f, st)
+        for f, st in pairs})
+    fused = [errs[f"{f}/fused"] for f in ("fp64", "fp32", "fp16", "bf16",
+                                          "fp8_e4m3")]
+    check(all(a < b for a, b in zip(fused, fused[1:])),
+          f"accuracy ladder not monotone: {fused}")
+    emit({"phase": "dse", "check": "accuracy_model", "pairs": len(pairs),
+          "rel_err": errs})
+
+    def softfloat_on_card():
+        n, out = SOFTFLOAT["n"], {}
+        r = np.random.default_rng(SEED)
+        for name in SOFTFLOAT["formats"]:
+            f = get_format(name)
+            raw = r.standard_normal((3, n)) * np.exp2(
+                r.integers(-6, 7, (3, n)))
+            cpu = [sf.quantize64(torch.from_numpy(x), f).float()
+                   for x in raw]
+            card = [t.to(dev) for t in cpu]
+            for op, k in (("sf_mul", 2), ("sf_add", 2), ("sf_fma", 3),
+                          ("sf_cma", 3)):
+                got = getattr(sf, op)(*card[:k], f).cpu()
+                want = getattr(sf, op)(*cpu[:k], f)
+                check(torch.equal(got.view(torch.int32),
+                                  want.view(torch.int32)),
+                      f"{op} {name}: the card differs from the CPU")
+            out[name] = n
+        wide = [torch.from_numpy(x) for x in
+                r.standard_normal((3, n)) * np.exp2(r.integers(-6, 7,
+                                                               (3, n)))]
+        got = sf.dp_fma(*(t.to(dev) for t in wide)).cpu()
+        want = sf.dp_fma(*wide)
+        check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
+              "dp_fma: the card differs from the CPU")
+        k = SOFTFLOAT["exact"]
+        a, b, c = (t[:k].tolist() for t in wide)
+        exact = [float(Fraction(x) * Fraction(y) + Fraction(z))
+                 for x, y, z in zip(a, b, c)]
+        check(got[:k].tolist() == exact, "dp_fma is not the correctly "
+              "rounded a*b + c")
+        check(sf.dp_cma(*wide[:3])[:k].tolist() != exact,
+              "dp_cma rounds as dp_fma does: the check cannot see a "
+              "second rounding")
+        return out
+
+    timed("softfloat_on_card", softfloat_on_card)
+
+    def dot_vs_oracle():
+        samples = torch.from_numpy(DEFAULT_ACCURACY_MODEL._samples())
+        checked = {}
+        for name in SOFTFLOAT["formats"]:
+            f = get_format(name)
+            for st in styles:
+                rows, want = [], []
+                for pair in samples.tolist():
+                    try:
+                        a = [rne_fraction(Fraction(x), f) for x in pair[0]]
+                        b = [rne_fraction(Fraction(x), f) for x in pair[1]]
+                        w = dot_exact_steps(a, b, f, st)
+                    except OverflowError:
+                        continue
+                    rows.append(([float(x) for x in a],
+                                 [float(x) for x in b]))
+                    want.append(float(np.float32(float(w))))
+                a = torch.tensor([x for x, _ in rows], device=dev)
+                b = torch.tensor([y for _, y in rows], device=dev)
+                got = emulated_dot(a, b, fmt=f, style=st)
+                check(got.device == a.device, "emulated_dot left the card")
+                check(got.tolist() == want,
+                      f"emulated_dot {name}/{st} on the card != the oracle")
+                checked[f"{name}/{st}"] = len(want)
+        return checked
+
+    checked = timed("emulated_dot_vs_oracle", dot_vs_oracle)
+    emit({"phase": "dse", "check": "softfloat", "triples_per_format":
+          SOFTFLOAT["n"], "dp_fma_exact_subsample": SOFTFLOAT["exact"],
+          "emulated_dot_samples": checked})
+
+    cache = energy_model.SweepExecutableCache()
+    loose = timed("autotune_slo_loose", lambda: at.autotune(
+        at.GEMM_STREAM, params=params, accuracy_slo=SLO_LOOSE, cache=cache,
+        device=dev))
+    tight = timed("autotune_slo_tight", lambda: at.autotune(
+        at.GEMM_STREAM, params=params, accuracy_slo=SLO_TIGHT, cache=cache,
+        device=dev))
+    check(loose.fmt.bits < 32 and loose.metrics["rel_err"] <= SLO_LOOSE,
+          f"loose SLO kept {loose.fmt.name}")
+    check(tight.fmt.name == "fp32" and tight.metrics["rel_err"] <= SLO_TIGHT,
+          f"tight SLO picked {tight.fmt.name}")
+    try:
+        at.autotune(at.GEMM_STREAM, params=params,
+                    accuracy_slo=SLO_UNMEETABLE, cache=cache, device=dev)
+        fail(f"accuracy_slo={SLO_UNMEETABLE} found a feasible point")
+    except ValueError as e:
+        check("no feasible" in str(e), f"unmeetable SLO raised {e}")
+    emit({"phase": "dse", "check": "format_joint_autotune",
+          "loose": loose.as_dict(), "tight": tight.as_dict()})
+
+    def picks(res):
+        return [(u.name, u.design.name, u.vdd, u.vbb, u.count, u.fmt.name)
+                for u in res.spec.units]
+
+    phases = chip.phases_from_config(ARCH)
+    latency_sim.clear_penalty_cache()
+    on_card = timed("tune_chip", lambda: chip.tune_chip(
+        phases, params=params, accuracy_slo=SLO_LOOSE,
+        cache=energy_model.SweepExecutableCache(), device=dev))
+    latency_sim.clear_penalty_cache()
+    on_cpu = timed("tune_chip_cpu", lambda: chip.tune_chip(
+        phases, params=params, accuracy_slo=SLO_LOOSE,
+        cache=energy_model.SweepExecutableCache(), device="cpu"))
+    check(picks(on_card) == picks(on_cpu), f"tune_chip: card "
+          f"{picks(on_card)} != CPU {picks(on_cpu)}")
+    emit({"phase": "dse", "check": "tune_chip", "arch": ARCH,
+          "accuracy_slo": SLO_LOOSE, "units": picks(on_card),
+          "report": on_card.report})
 
 
 def numpy_tune(profile, precision, params, dev):
@@ -1804,6 +2125,19 @@ def main():
         lambda: attention_full_width(model, params, rng))
     kernels.append(time_flash_kernel(dev, flash_operands_, errs))
     del flash_operands_
+    # the chip facade: fleet routing, energy and the routed units'
+    # numerics through K1, on the card's own calibration of the model
+    from repro_torch.core import energy_model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tech = energy_model.calibrate(device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    emit({"phase": "chip", "stage": "calibrate", "seconds": fit_s,
+          "card": smi})
+    drive(f"{ARCH} chip", ("fused_qmm",),
+          lambda: chip_full_width(model, params,
+                                  np.random.default_rng(SEED + 2), tech))
     specs = benchgen_specs()
     machine = calibrate(device=dev)  # launches K2: outside the window
     _, (bench,) = drive(
@@ -1848,7 +2182,7 @@ def main():
     del smodel, sparams
     gc.collect()
     torch.cuda.empty_cache()
-    dse_full_size(dev, smi)
+    dse_full_size(dev, smi, tech, fit_s)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": smi})

@@ -3,6 +3,8 @@ round-to-format, and the paper's DSE stack.
 
 formats.py      — parameterized binary float formats, RNE and stochastic
                   rounding
+softfloat.py    — bit-exact FMA/CMA semantics (fused vs cascade vs fwd) in
+                  float64 torch
 fpu_arch.py     — FPGen microarchitecture design space (FPUDesign)
 energy_model.py — analytical energy/area/delay model calibrated to Table I
                   (batched float64 torch evaluation, float32 autograd fit)
@@ -14,9 +16,12 @@ autotune.py     — workload-aware autotuner over SweepResult (Table I)
 body_bias.py    — static/adaptive body-bias energy policies (Fig. 4)
 localsearch.py  — greedy hillclimbing with a recorded trajectory
 trace.py        — dependency profiles from the aten ops of a call
+chip.py         — chip-level heterogeneous-fleet API (ChipSpec / ChipPolicy /
+                  tune_chip)
 
-Not ported yet (ROADMAP.md queue 1 item 7): ``chip.py``,
-``precision_policy.py`` and ``softfloat.py``.
+The consumer-facing format/emulation/accuracy surface is
+``repro_torch.numerics`` (registry, emulated_matmul / emulated_dot,
+AccuracyModel).
 """
 from repro_torch.core.formats import (  # noqa: F401
     BF16, FP8_E4M3, FP8_E5M2, FP16, FP32, FP64, TF32, FloatFormat,

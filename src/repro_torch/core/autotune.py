@@ -27,8 +27,11 @@ the card unless ``device='cpu'``):
   4. ``core.objective.workload_objective`` scalarizes and ``argbest``
      selects, under optional metric constraints.
 
-The format-joint search (``formats=`` / ``accuracy_slo=``) needs the
-accuracy model, which is not ported yet: it raises ``NotImplementedError``.
+With ``formats=`` / ``accuracy_slo=`` the search runs jointly over FPU
+structure x electrical point x operand format: every structure is
+re-instantiated per format, all of them go through one sweep, and the
+exact-rational ``AccuracyModel`` (host-side) scores each (format,
+accumulation style) pair for the ``rel_err`` constraint.
 """
 from __future__ import annotations
 
@@ -264,7 +267,7 @@ def autotune(profile: WorkloadProfile,
              accuracy_slo: float | None = None,
              accuracy_model=None,
              device=None) -> TuneResult:
-    """Search design x (V_DD, V_BB) for the profile's optimum.
+    """Search design x (V_DD, V_BB) [x format] for the profile's optimum.
 
     ``designs`` defaults to the full expanded enumeration for ``precision``;
     pass e.g. the four fabricated units (with ``anchored=True``) to tune
@@ -272,31 +275,67 @@ def autotune(profile: WorkloadProfile,
     device buffers and the penalty cache.  The sweep and the latency
     simulator run on ``device`` (the card unless ``device='cpu'``).
 
-    ``formats`` / ``accuracy_slo`` / ``accuracy_model`` select the JAX
-    package's format-joint search, which needs the exact-rational
-    ``AccuracyModel``; it is not ported yet and raises.
+    With ``formats`` (candidate operand formats — names or
+    ``FloatFormat``s) and/or ``accuracy_slo`` (normwise-relative-error
+    ceiling, see ``objective.accuracy_constraint``) the search runs
+    *jointly* over FPU structure x electrical point x format: every
+    candidate structure is re-instantiated per format via
+    ``FPUDesign.with_format`` and an ``rel_err`` column from the
+    exact-rational ``AccuracyModel`` gates feasibility.  ``accuracy_slo``
+    without ``formats`` searches the registry ladder of the precision
+    class.  With neither argument the format-agnostic path runs unchanged.
     """
-    if formats is not None or accuracy_slo is not None \
-            or accuracy_model is not None:
-        raise NotImplementedError(
-            "the format-joint autotune (formats= / accuracy_slo=) needs "
-            "numerics.accuracy.AccuracyModel, which is ROADMAP.md queue 1 "
-            "item 7 and not ported yet")
     params = params or calibrate(device=device)
     designs = list(designs) if designs is not None \
         else enumerate_structures_full(precision)
-    res = sweep_arrays(designs, params, vdd_grid, vbb_grid,
+    if formats is None and accuracy_slo is None:
+        res = sweep_arrays(designs, params, vdd_grid, vbb_grid,
+                           mix=profile.mix(), with_latency=True,
+                           anchored=anchored, cache=cache, device=device)
+        attach_workload_metrics(res, profile, params, vbb_idle=vbb_idle)
+        objective = profile.objective()
+        i = res.argbest(objective, constraints)
+        return TuneResult(
+            profile=profile, design=res.design_of(i),
+            vdd=float(res.vdd[i]), vbb=float(res.vbb[i]),
+            metrics={k: float(v[i]) for k, v in res.metrics.items()},
+            index=i, n_points=len(res), objective_name=objective.name,
+            cache_stats=dict(cache.stats) if cache is not None else {})
+
+    from repro_torch import numerics as rn
+    cand = tuple(rn.get_format(f) for f in formats) if formats is not None \
+        else rn.REGISTRY.formats_for(precision)
+    if not cand:
+        raise ValueError("formats candidate set is empty")
+    amodel = accuracy_model or rn.DEFAULT_ACCURACY_MODEL
+    all_designs: List[FPUDesign] = []
+    fmt_of_design: List[object] = []
+    for f in cand:
+        all_designs.extend(d.with_format(f) for d in designs)
+        fmt_of_design.extend([f] * len(designs))
+    res = sweep_arrays(all_designs, params, vdd_grid, vbb_grid,
                        mix=profile.mix(), with_latency=True,
                        anchored=anchored, cache=cache, device=device)
     attach_workload_metrics(res, profile, params, vbb_idle=vbb_idle)
+    # per-point numerics error: the (format, accumulation-style) pair's
+    # oracle score (cached inside the model — one exact-rational run per
+    # distinct pair, shared across all electrical points)
+    per_design_err = np.asarray([
+        amodel.rel_err(f, rn.accum_style_for(d.style, d.forwarding))
+        for d, f in zip(all_designs, fmt_of_design)])
+    res.metrics[obj.ACCURACY_METRIC] = per_design_err[res.design_index]
+    cons = tuple(constraints)
+    if accuracy_slo is not None:
+        cons += (obj.accuracy_constraint(accuracy_slo),)
     objective = profile.objective()
-    i = res.argbest(objective, constraints)
+    i = res.argbest(objective, cons)
     return TuneResult(
         profile=profile, design=res.design_of(i),
         vdd=float(res.vdd[i]), vbb=float(res.vbb[i]),
         metrics={k: float(v[i]) for k, v in res.metrics.items()},
         index=i, n_points=len(res), objective_name=objective.name,
-        cache_stats=dict(cache.stats) if cache is not None else {})
+        cache_stats=dict(cache.stats) if cache is not None else {},
+        fmt=fmt_of_design[int(res.design_index[i])])
 
 
 def static_bb_energy(result: TuneResult) -> float:

@@ -129,14 +129,12 @@ def axis_costs(metrics: MetricCols, axes: ParetoAxes
 
 
 # ---------------------------------------------------------------------------
-# Accuracy constraints (the numerics AccuracyModel hook; the model itself is
-# not ported yet: ROADMAP.md queue 1 item 7)
+# Accuracy constraints (the numerics AccuracyModel hook)
 # ---------------------------------------------------------------------------
 #: metric column carrying each sweep point's emulated-numerics error — the
 #: RMS normwise relative error of the point's (format, accumulation-style)
 #: pair on the AccuracyModel's sampled dot-product workload.  Attached by
-#: the autotuner when tuning with ``formats=`` / ``accuracy_slo=`` (not
-#: ported yet).
+#: the autotuner when tuning with ``formats=`` / ``accuracy_slo=``.
 ACCURACY_METRIC = "rel_err"
 
 

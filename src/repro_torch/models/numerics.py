@@ -1,8 +1,10 @@
 """Numerics-policy-aware matmul: where the FPMax technique meets the models
 (counterpart of ``repro.models.numerics``).
 
-Adapter only: the emulation path lives in ``repro_torch.numerics``.  Under
-an emulating policy every projection and the unembed go through
+Adapter only: the emulation path lives in ``repro_torch.numerics``; this
+module resolves *which* policy applies — an explicit numerics policy, or
+the one the chip facade routes for an execution phase (``chip_matmul``).
+Under an emulating policy every projection and the unembed go through
 ``emulated_matmul``, which on CUDA tensors launches the K1 kernel,
 ``policy_flash_attention`` goes through ``emulated_flash_attention`` (K4)
 and ``policy_ssm_scan`` through ``emulated_ssm_scan`` (K5).
@@ -10,7 +12,8 @@ and ``policy_ssm_scan`` through ``emulated_ssm_scan`` (K5).
 from __future__ import annotations
 
 from repro_torch.numerics import (emulated_flash_attention,
-                                  emulated_ssm_scan, policy_matmul)
+                                  emulated_ssm_scan, get_format,
+                                  policy_matmul)
 
 
 def matmul(x, w, policy=None):
@@ -41,6 +44,20 @@ def policy_ssm_scan(a, b, c, policy=None, **kw):
     fmt = policy.fmt if (policy is not None
                          and getattr(policy, "emulate", False)) else None
     return emulated_ssm_scan(a, b, c, fmt=fmt, device=a.device, **kw)
+
+
+def chip_matmul(x, w, chip_policy, phase: str, fmt=None,
+                precision: str | None = None):
+    """Matmul under the numerics of the chip unit routed for ``phase``.
+
+    ``chip_policy`` is a ``core.chip.ChipPolicy``; the routed unit's
+    format / accumulation-style policy is applied through the emulated
+    kernel semantics (``emulate=True``: K1 on CUDA tensors).  ``fmt=None``
+    uses the routed unit's tuned operand format (bf16 fallback)."""
+    fmt = get_format(fmt) if fmt is not None else None
+    pol = chip_policy.numerics_for_phase(phase, fmt=fmt,
+                                         precision=precision, emulate=True)
+    return policy_matmul(x, w, pol)
 
 
 class EmulatedPolicy:

@@ -1,4 +1,4 @@
-"""The emulation surface: matmul / quantize under FPMax semantics
+"""The emulation surface: matmul / dot / quantize under FPMax semantics
 (counterpart of ``repro.numerics.emulate``).
 
 Every consumer that wants "this computation, under the numerics of that FPU"
@@ -92,6 +92,29 @@ def emulated_matmul(a, b, *, fmt: FloatFormat | str, style: str = "fused",
         else _ref.fma_emu_matmul_ref
     out = fn(a2, b, fmt=fmt, style=style, out_fmt=out_fmt)
     return out.reshape(batch_shape + (m, b.shape[1]))
+
+
+def emulated_dot(a_vec, b_vec, *, fmt: FloatFormat | str,
+                 style: str = "fused", device=None) -> torch.Tensor:
+    """Dot product under the exact per-scalar unit semantics.
+
+    Unlike ``emulated_matmul`` (which models the k-block mapping), this is
+    what the physical FMA/CMA unit computes one operation at a time, the
+    granularity the ``AccuracyModel`` oracle certifies.  Shapes:
+    ``(..., K) . (..., K) -> (...,)``, f32, in float64 torch on the
+    operands' device (tensors) or on ``device`` (default CUDA; raises if it
+    is absent)."""
+    from repro_torch.core import softfloat as _sf
+    fmt = get_format(fmt)
+    if style == "fused":
+        return _sf.dot_fused(a_vec, b_vec, fmt, device=device)
+    if style == "cascade":
+        return _sf.dot_cascade(a_vec, b_vec, fmt, forwarding=False,
+                               device=device)
+    if style == "cascade_fwd":
+        return _sf.dot_cascade(a_vec, b_vec, fmt, forwarding=True,
+                               device=device)
+    raise ValueError(f"style must be one of {STYLES}, got {style!r}")
 
 
 def matmul_for_policy(a, b, policy, **kw) -> torch.Tensor:

@@ -5,8 +5,8 @@
   collective = collective_bytes / link_bw
 
 Counterpart of ``repro.roofline.analysis``: the ``RooflineReport`` dataclass
-and its properties, and the measured utilizations read from dry-run JSON
-artifacts.  The report's default rates are those of one NVIDIA H100 SXM
+and its properties, the measured utilizations read from dry-run JSON
+artifacts, and the model-FLOP estimate the chip tuner weights phases by.  The report's default rates are those of one NVIDIA H100 SXM
 from NVIDIA's data sheet (dense bf16 tensor-core peak, HBM3 rate, NVLink
 rate each way), not the JAX package's TPU constants.
 """
@@ -154,3 +154,16 @@ def measured_utilization(arch: str, shape: str,
                          results_dir: str = "results") -> Optional[float]:
     """Best measured roofline fraction for one cell, or None if unmeasured."""
     return measured_utilizations(results_dir).get((arch, shape))
+
+
+def model_flops_estimate(cfg, shape) -> float:
+    """6*N*D for training; 2*N*D for inference (per step/token set)."""
+    n = cfg.active_param_count()
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n * tokens
+    # decode: one token per sequence
+    return 2.0 * n * shape.global_batch

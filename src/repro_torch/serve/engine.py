@@ -1,5 +1,6 @@
-"""Batched serving engine: continuous batching over the LM's decode step
-(counterpart of ``repro.serve.engine``, without chip-policy routing).
+"""Batched serving engine: continuous batching over the LM's decode step,
+with chip-aware admission routing across per-unit slot fleets (counterpart
+of ``repro.serve.engine``).
 
 The engine drives the LM's prefill/decode steps with a fixed slot count.
 Requests are admitted into free slots; finished and expired slots are
@@ -23,6 +24,19 @@ recycled.  Structure, as in the JAX engine:
   * **Deadlines** on an injected ``clock``: a request that expired before a
     step is released without decoding another token; tokens decoded in the
     dispatch during which the deadline passes are kept.
+  * **Chip-aware admission routing** — with a ``core.chip.ChipPolicy``
+    attached the slots are partitioned into per-unit fleets
+    (``ChipPolicy.slot_fleets``) and every request is routed at admission
+    to its fleet by its ``precision``, with ``deadline_routing=True`` by
+    its deadline class (deadline-bound -> latency-class unit, bulk ->
+    throughput-class unit), and by its ``accuracy_slo`` (the cheapest fleet
+    whose unit format meets it; ``accuracy_fleets=`` lists the classes to
+    provision fleets for).  Routing changes no numerics: the served model
+    runs its own matmuls, as in the JAX engine.
+  * **Bulk energy accounting** — energy is charged once per dispatch
+    boundary on the fleet's unit (decoded tokens) and per admission on the
+    prefill unit (the prompt's forward pass, including the logits that give
+    the first token); ``energy_report()`` aggregates chip-level.
 
 The device state is updated in place (the JAX engine donates its buffers
 to the same effect).  Greedy sampling only.  The engine runs on the
@@ -49,6 +63,10 @@ class Request:
     prompt: np.ndarray  # (S,) int
     max_new_tokens: int
     deadline_s: Optional[float] = None
+    precision: Optional[str] = None  # requested fleet precision (sp/dp)
+    #: requested accuracy class: max acceptable numerics error (normwise
+    #: relative, the AccuracyModel scale); None = don't care
+    accuracy_slo: Optional[float] = None
     # filled by the engine
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
@@ -56,10 +74,13 @@ class Request:
     #: structurally rejected by validation: never admitted
     rejected: bool = False
     reject_reason: str = ""
+    routed_unit: str = ""  # chip unit serving this request's decode phase
     #: clock time ``submit()`` accepted the request (TTFT origin)
     submitted_s: Optional[float] = None
     #: clock time the first output token was committed
     first_token_s: Optional[float] = None
+    energy_j: float = 0.0  # total (partial if expired)
+    unit_energy_j: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 class RequestRejected(ValueError):
@@ -84,20 +105,25 @@ def bucket_length(n: int, *, lo: int = 8) -> int:
 class BatchedServer:
     """Fixed-slot continuous batching server around one LM.
 
-    ``dispatch_tokens`` is the fused decode depth ``run()`` uses per
-    dispatch; ``clock`` is the deadline time source.  Fleet routing by a
-    chip policy is not ported yet (ROADMAP.md queue 1 item 7): the slots
-    form one fleet, named ''."""
+    ``chip_policy`` (a ``core.chip.ChipPolicy``) enables fleet routing and
+    per-unit energy accounting, at ``2 * active params`` of the model
+    config per token.  Without a policy the slots form
+    one fleet, named ''.  ``dispatch_tokens`` is the fused decode depth
+    ``run()`` uses per dispatch; ``clock`` is the deadline time source;
+    ``deadline_routing`` splits each precision's traffic across
+    latency-class (deadline-bound) and throughput-class (bulk) fleets;
+    ``accuracy_fleets`` lists the accuracy classes (SLOs) to provision
+    fleets for, on top of the don't-care class."""
 
     def __init__(self, model: LM, params, *, slots: int, max_len: int,
-                 pad_id: int = 0, chip_policy=None, dispatch_tokens: int = 8,
+                 pad_id: int = 0, chip_policy=None,
+                 dispatch_tokens: int = 8,
                  clock: Callable[[], float] = time.monotonic,
+                 deadline_routing: bool = False,
+                 accuracy_fleets: Tuple[float, ...] = (),
                  stop_tokens: Tuple[int, ...] = (), min_bucket: int = 8,
                  prefill_chunk: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None, tracer=None):
-        if chip_policy is not None:
-            raise NotImplementedError("chip_policy routing is not ported "
-                                      "yet: ROADMAP.md queue 1 item 7")
         if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise ValueError("prefill_chunk must be >= 1")
@@ -118,6 +144,7 @@ class BatchedServer:
         self.max_len = max_len
         self.pad_id = pad_id
         self.cfg = model.cfg
+        self.chip_policy = chip_policy
         self.dispatch_tokens = dispatch_tokens
         self.min_bucket = min_bucket
         self.prefill_chunk = prefill_chunk
@@ -125,6 +152,11 @@ class BatchedServer:
         self.stop_tokens = tuple(int(s) for s in stop_tokens)
         self._stop_set = set(self.stop_tokens)
         self._clock = clock
+        self._deadline_routing = deadline_routing
+        self._accuracy_fleets = tuple(accuracy_fleets)
+        self._precision = getattr(self.cfg, "numerics_precision", None)
+        self.flops_per_token = 2.0 * self.cfg.active_param_count()
+        self._unit_energy_j: Dict[str, float] = {}
         self._prefill_pos: Dict[int, int] = {}  # slot -> tokens prefilled
         self._slot_pf_budget = [0] * slots  # decode budget armed on finish
         self.prefill_tokens = 0
@@ -148,32 +180,173 @@ class BatchedServer:
                                     device=dev)
         self._budget = torch.zeros(slots, dtype=torch.int64, device=dev)
         self._active_mask = torch.zeros(slots, dtype=torch.bool, device=dev)
-        # host-side slot table and queue
+        # host-side slot table, fleet plan and per-fleet queues
         self._active: List[Optional[Request]] = [None] * slots
         self._slot_quota = [0] * slots  # 1 + device budget per slot
-        self._queue: List[Request] = []
-        self._in_service = True
         self.finished: List[Request] = []
         self.rejected: List[Request] = []
+        #: fleets taken out of service: admission never routes to them
+        self._out_of_service: set = set()
+        if chip_policy is None:
+            self._fleets: Dict[str, Tuple[int, ...]] = {
+                "": tuple(range(slots))}
+            self._fleet_units: Dict[str, object] = {"": None}
+        else:
+            self._fleets = chip_policy.slot_fleets(
+                slots, deadline_routing=deadline_routing,
+                accuracy_slos=(None,) + self._accuracy_fleets)
+            self._fleet_units = {name: chip_policy.spec.unit(name)
+                                 for name in self._fleets}
+        self._queues: Dict[str, List[Request]] = {name: []
+                                                  for name in self._fleets}
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.reset_run_counters()
 
+    # ------------------------------------------------------ chip telemetry
+    def _charge_unit(self, req: Request, unit, flops: float,
+                     phase: str = "decode") -> None:
+        """Account ``flops`` on ``unit`` (bulk form, at dispatch
+        boundaries), at the unit's current health pricing.  The single
+        energy choke point: every prefill and decode charge flows through
+        here."""
+        if self.chip_policy is None or not flops or unit is None:
+            return
+        e_j = self.chip_policy.unit_energy_j(unit, flops)
+        req.energy_j += e_j
+        req.unit_energy_j[unit.name] = \
+            req.unit_energy_j.get(unit.name, 0.0) + e_j
+        self._unit_energy_j[unit.name] = \
+            self._unit_energy_j.get(unit.name, 0.0) + e_j
+        if self.tracer.enabled:
+            self.tracer.charge(req.uid, unit.name, e_j, flops,
+                               self._clock(), phase=phase)
+
+    def _prefill_unit(self, req: Request):
+        if self.chip_policy is None:
+            return None
+        return self.chip_policy.unit_for_phase(
+            "prefill", precision=req.precision or self._precision)
+
     # ------------------------------------------------------------ counters
+    def _totals(self) -> Dict[str, float]:
+        return dict(tokens_decoded=self.tokens_decoded,
+                    prefill_tokens=self.prefill_tokens,
+                    dispatches=self.dispatches, host_syncs=self.host_syncs,
+                    energy_j=sum(self._unit_energy_j.values()))
+
     def reset_run_counters(self) -> None:
         """Zero the decode-stall inputs and snapshot the cumulative counters
         so ``run_report()`` gives this run's deltas (``run()`` calls it)."""
         self._stall_prefill_tokens = 0
         self._contended_decode_tokens = 0
-        self._run_base = dict(tokens_decoded=self.tokens_decoded,
-                              prefill_tokens=self.prefill_tokens,
-                              dispatches=self.dispatches,
-                              host_syncs=self.host_syncs)
+        self._run_base = self._totals()
 
     def run_report(self) -> Dict[str, float]:
         """Counters scoped to the current run."""
-        out = {k: getattr(self, k) - v for k, v in self._run_base.items()}
+        out = {k: v - self._run_base[k] for k, v in self._totals().items()}
         out["decode_stall_frac"] = self.decode_stall_frac
         return out
+
+    def energy_report(self) -> Dict[str, object]:
+        """Chip-level energy over everything served so far (cumulative
+        across runs; ``run_report()`` has the per-run delta)."""
+        total = sum(self._unit_energy_j.values())
+        return dict(
+            chip=self.chip_policy.spec.name if self.chip_policy else None,
+            total_j=total,
+            per_unit_j=dict(self._unit_energy_j),
+            tokens_decoded=self.tokens_decoded,
+            j_per_token=(total / self.tokens_decoded
+                         if self.tokens_decoded else 0.0))
+
+    def fleet_report(self) -> Dict[str, Dict[str, object]]:
+        """Per-fleet slot allocation and queue depth."""
+        return {name or "(default)": dict(
+            unit=name or None, slots=list(ids),
+            queued=len(self._queues[name]),
+            in_service=self._fleet_in_service(name),
+            active=sum(1 for s in ids if self._active[s] is not None))
+            for name, ids in self._fleets.items()}
+
+    # ------------------------------------------------------------ routing
+    def _fleet_in_service(self, name: str) -> bool:
+        """A fleet is routable when the engine has not taken it out of
+        service and the chip's health model still lists its unit as
+        serving."""
+        if name in self._out_of_service:
+            return False
+        if self.chip_policy is not None \
+                and self._fleet_units.get(name) is not None:
+            return self.chip_policy.in_service(name)
+        return True
+
+    def _serving_fleets(self) -> List[str]:
+        return [n for n in self._fleets if self._fleet_in_service(n)]
+
+    def _route(self, req: Request) -> str:
+        """Admission routing: which fleet serves this request's decode."""
+        if self.chip_policy is None:
+            return self._degrade_route(req)
+        deadline_class = None
+        if self._deadline_routing:
+            deadline_class = ("interactive" if req.deadline_s is not None
+                              else "bulk")
+        try:
+            unit = self.chip_policy.admission_unit(
+                precision=req.precision or self._precision,
+                deadline_class=deadline_class,
+                accuracy_slo=req.accuracy_slo)
+        except UnitFault:  # every unit out of service: degrade below
+            unit = None
+        if unit is not None and unit.name in self._fleets \
+                and self._fleet_in_service(unit.name):
+            return unit.name
+        return self._degrade_route(req)
+
+    def _degrade_route(self, req: Request) -> str:
+        """Degrade-don't-drop re-resolution against the provisioned,
+        in-service fleets — used when the chip routed a unit no fleet was
+        provisioned for, or the preferred fleet is out of service.
+
+        Same-precision fleets first when any survive; then the cheapest
+        fleet whose unit meets the request's accuracy requirement (its
+        ``accuracy_slo``, else the native error of its requested
+        precision); else the most accurate survivor.  With no fleet in
+        service there is nothing to degrade to: ``UnitFault``."""
+        units = [(n, u) for n, u in self._fleet_units.items()
+                 if u is not None and self._fleet_in_service(n)]
+        if not units:
+            alive = self._serving_fleets()
+            if alive:  # fleets without chip units (no-policy engines)
+                return alive[0]
+            raise UnitFault(
+                f"request {req.uid}: no serving fleet in service "
+                f"(out of service: {sorted(self._out_of_service)})")
+        want_p = req.precision or self._precision
+        if want_p is not None:
+            same_p = [(n, u) for n, u in units
+                      if u.design.precision == want_p]
+            units = same_p or units
+        ceiling = req.accuracy_slo
+        if ceiling is None and req.precision is not None:
+            # across precisions, a surviving unit at least as accurate as
+            # the requested precision's native format is legal (validate
+            # admitted only precisions fabricated on the die)
+            from repro_torch.numerics import (DEFAULT_ACCURACY_MODEL,
+                                              native_format)
+            ceiling = DEFAULT_ACCURACY_MODEL.rel_err(
+                native_format(req.precision), "fused")
+        pol = self.chip_policy
+
+        def cost(nu):  # health-repriced pJ/FLOP: throttled fleets cost more
+            return nu[1].e_per_flop_pj * pol.unit_energy_scale(nu[0])
+
+        if ceiling is not None:
+            ok = [(n, u) for n, u in units if u.rel_err() <= ceiling]
+            if ok:
+                return min(ok, key=cost)[0]
+            return min(units, key=lambda nu: nu[1].rel_err())[0]
+        return min(units, key=cost)[0]
 
     @property
     def decode_stall_frac(self) -> float:
@@ -214,19 +387,46 @@ class BatchedServer:
             self._reject(req, "prompt_too_long",
                          f"prompt length {len(prompt)} exceeds the engine "
                          f"cache capacity {self._len_cap}")
+        if req.accuracy_slo is not None and req.accuracy_slo <= 0:
+            self._reject(req, "bad_accuracy_slo",
+                         f"accuracy_slo must be > 0, got {req.accuracy_slo}")
+        if self.chip_policy is not None:
+            die = self.chip_policy.spec.units
+            if req.precision is not None:
+                have = sorted({u.design.precision for u in die})
+                if req.precision not in have:
+                    self._reject(req, "unknown_precision",
+                                 f"precision {req.precision!r} is not "
+                                 f"fabricated on chip "
+                                 f"{self.chip_policy.spec.name!r} "
+                                 f"(have {have})")
+            if req.accuracy_slo is not None:
+                best = min(u.rel_err() for u in die)
+                if best > req.accuracy_slo:
+                    self._reject(
+                        req, "accuracy_slo_unmeetable",
+                        f"no unit on chip {self.chip_policy.spec.name!r} "
+                        f"meets accuracy_slo={req.accuracy_slo:g} (best "
+                        f"achievable rel_err={best:g})")
 
     def set_fleet_in_service(self, name: str, in_service: bool) -> None:
-        if name != "":
-            raise KeyError(f"no fleet {name!r}; have ['']")
-        self._in_service = in_service
+        if name not in self._fleets:
+            raise KeyError(f"no fleet {name!r}; have {sorted(self._fleets)}")
+        if in_service:
+            self._out_of_service.discard(name)
+        else:
+            self._out_of_service.add(name)
 
     def submit(self, req: Request):
+        """Validate, route (``UnitFault`` when no fleet is in service) and
+        queue a request on its fleet."""
         self.validate(req)
-        if not self._in_service:
-            raise UnitFault(f"request {req.uid}: no serving fleet in service")
+        fleet = self._route(req)
         if req.submitted_s is None:
             req.submitted_s = self._clock()
-        self._queue.append(req)
+        if self.chip_policy is not None:
+            req.routed_unit = fleet
+        self._queues[fleet].append(req)
         if self.tracer.enabled:
             self.tracer.request_begin(req.uid, req.submitted_s,
                                       prompt_tokens=len(req.prompt),
@@ -273,7 +473,8 @@ class BatchedServer:
 
     def idle(self) -> bool:
         """Nothing queued or seated."""
-        return not self._queue and all(r is None for r in self._active)
+        return all(not q for q in self._queues.values()) \
+            and all(r is None for r in self._active)
 
     def _budget_for(self, req: Request) -> int:
         """Device decode budget: the tokens after the first, capped by the
@@ -311,32 +512,34 @@ class BatchedServer:
         self._active_mask[idx] = b > 0
 
     def _admit(self, now: float):
-        if not self._in_service:
-            return
-        queue = self._queue
-        while queue:
-            free = [s for s in range(self.slots) if self._active[s] is None]
-            if not free:
-                break
-            batch: List[Request] = []
-            bucket = None
-            i = 0
-            while i < len(queue) and len(batch) < len(free):
-                req = queue[i]
-                if req.deadline_s is not None and now > req.deadline_s:
-                    queue.pop(i)
-                    self._expire(req)  # expired in queue: zero work
-                    continue
-                b = self._bucket(len(req.prompt))
-                if bucket is None:
-                    bucket = b
-                if b == bucket:  # batched same-bucket admission
-                    batch.append(queue.pop(i))
-                    continue
-                i += 1
-            if not batch:
-                break
-            self._admit_batch(batch, free[:len(batch)], bucket)
+        """Per in-service fleet: seat its queue in its own slots."""
+        for fleet, slot_ids in self._fleets.items():
+            if not self._fleet_in_service(fleet):
+                continue
+            queue = self._queues[fleet]
+            while queue:
+                free = [s for s in slot_ids if self._active[s] is None]
+                if not free:
+                    break
+                batch: List[Request] = []
+                bucket = None
+                i = 0
+                while i < len(queue) and len(batch) < len(free):
+                    req = queue[i]
+                    if req.deadline_s is not None and now > req.deadline_s:
+                        queue.pop(i)
+                        self._expire(req)  # expired in queue: zero work
+                        continue
+                    b = self._bucket(len(req.prompt))
+                    if bucket is None:
+                        bucket = b
+                    if b == bucket:  # batched same-bucket admission
+                        batch.append(queue.pop(i))
+                        continue
+                    i += 1
+                if not batch:
+                    break
+                self._admit_batch(batch, free[:len(batch)], bucket)
 
     def _admit_batch(self, reqs: List[Request], slot_ids: List[int],
                      bucket: int):
@@ -371,6 +574,11 @@ class BatchedServer:
                 self.tracer.event(req.uid, TraceEvent.PREFILL, now,
                                   tokens=len(req.prompt), bucket=bucket,
                                   slot=slot)
+            # the prompt's forward pass, including the logits that give the
+            # first token: decode charges start with the first decode step
+            self._charge_unit(req, self._prefill_unit(req),
+                              self.flops_per_token * len(req.prompt),
+                              phase="prefill")
             self.prefill_tokens += len(req.prompt)
             if self._commit_first(req, slot, f, budget, now):
                 dead.append(slot)
@@ -381,24 +589,28 @@ class BatchedServer:
 
     # --------------------------------------- continuous batching scheduler
     def _seat(self, now: float):
-        """Move queued requests into free lanes immediately (FIFO) without
-        device work; seated lanes prefill chunk by chunk."""
-        if not self._in_service:
-            return
-        free = [s for s in range(self.slots) if self._active[s] is None]
-        while self._queue and free:
-            req = self._queue.pop(0)
-            if req.deadline_s is not None and now > req.deadline_s:
-                self._expire(req)
+        """Move queued requests into their fleet's free lanes immediately
+        (FIFO per in-service fleet) without device work; seated lanes
+        prefill chunk by chunk."""
+        for fleet, slot_ids in self._fleets.items():
+            if not self._fleet_in_service(fleet):
                 continue
-            slot = free.pop(0)
-            self._active[slot] = req
-            self._prefill_pos[slot] = 0
-            self._slot_pf_budget[slot] = self._budget_for(req)
-            self._slot_quota[slot] = 1 + self._slot_pf_budget[slot]
-            if self.tracer.enabled:
-                self.tracer.begin_attempt(req.uid, now, slot=slot)
-                self.tracer.event(req.uid, TraceEvent.SEAT, now, slot=slot)
+            queue = self._queues[fleet]
+            free = [s for s in slot_ids if self._active[s] is None]
+            while queue and free:
+                req = queue.pop(0)
+                if req.deadline_s is not None and now > req.deadline_s:
+                    self._expire(req)
+                    continue
+                slot = free.pop(0)
+                self._active[slot] = req
+                self._prefill_pos[slot] = 0
+                self._slot_pf_budget[slot] = self._budget_for(req)
+                self._slot_quota[slot] = 1 + self._slot_pf_budget[slot]
+                if self.tracer.enabled:
+                    self.tracer.begin_attempt(req.uid, now, slot=slot)
+                    self.tracer.event(req.uid, TraceEvent.SEAT, now,
+                                      slot=slot)
 
     def _advance_prefills(self, now: float):
         """Advance every mid-prefill lane by one chunk, grouped by padded
@@ -453,6 +665,9 @@ class BatchedServer:
             for j, s in enumerate(slots):
                 req = self._active[s]
                 self.prefill_tokens += clens[j]
+                self._charge_unit(req, self._prefill_unit(req),
+                                  self.flops_per_token * clens[j],
+                                  phase="prefill")
                 if self.tracer.enabled:
                     self.tracer.event(req.uid, TraceEvent.PREFILL_CHUNK, now,
                                       tokens=clens[j], offset=offs[j],
@@ -514,6 +729,8 @@ class BatchedServer:
                                   tokens=count, slot=slot)
             req.output.extend(int(t) for t in toks_np[:count, slot])
             self.tokens_decoded += count
+            self._charge_unit(req, self._fleet_units.get(req.routed_unit),
+                              self.flops_per_token * count)
             if count < n or len(req.output) >= self._slot_quota[slot] \
                     or (count and int(toks_np[count - 1, slot])
                         in self._stop_set):

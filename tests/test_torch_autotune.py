@@ -278,10 +278,19 @@ def test_cache_hits_on_same_shape_retune(params):
 
 
 def test_format_joint_autotune_is_not_ported(params):
-    for kw in (dict(formats=("bf16",)), dict(accuracy_slo=1e-3)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            at.autotune(at.GEMM_STREAM, "sp", params=params, device=CPU,
-                        **kw)
+    """The format-joint search has landed with the accuracy oracle: a
+    single candidate format is the tuned one, and an SLO picks a format
+    that meets it (tests/test_torch_chip.py holds the picks to JAX's)."""
+    designs = list(FABRICATED.values())[2:]
+    kw = dict(designs=designs, params=params, vdd_grid=VDD, vbb_grid=VBB,
+              cache=None, device=CPU)
+    r = at.autotune(at.GEMM_STREAM, "sp", formats=("bf16",), **kw)
+    assert r.fmt.name == "bf16" and r.as_dict()["fmt"] == "bf16"
+    assert r.metrics[obj.ACCURACY_METRIC] > 0
+    r = at.autotune(at.GEMM_STREAM, "sp", accuracy_slo=1e-3, **kw)
+    assert r.metrics[obj.ACCURACY_METRIC] <= 1e-3
+    with pytest.raises(ValueError, match="empty"):
+        at.autotune(at.GEMM_STREAM, "sp", formats=(), **kw)
 
 
 def test_hillclimb_matches(ref):

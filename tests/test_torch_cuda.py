@@ -550,3 +550,42 @@ def test_fp8_cache_cast_on_card(card):
         assert torch.equal(got.float().isnan(), nan)
         assert torch.equal(got.view(torch.uint8)[~nan],
                            want.view(torch.uint8)[~nan])
+
+
+SOFTFLOAT_FORMATS = ("fp32", "tf32", "bf16", "fp16", "fp8_e4m3", "fp8_e5m2")
+
+
+@pytest.mark.parametrize("fmt", SOFTFLOAT_FORMATS)
+def test_softfloat_on_card_bitwise(card, fmt):
+    """The float64 softfloat on the card gives the CPU's bits: every
+    elementwise op on 2**16 normal-range triples on ``fmt``'s grid, and
+    ``emulated_dot`` in every style on the accuracy oracle's own 24 x 64
+    samples (held against the JAX package and the oracle on the CPU in
+    test_torch_softfloat.py and test_torch_accuracy.py).  Each op is one
+    kernel of its own, so nothing is contracted into a fused
+    multiply-add."""
+    from repro_torch.core import softfloat as sf
+    from repro_torch.numerics import AccuracyModel, emulated_dot, get_format
+    f = get_format(fmt)
+    r = np.random.default_rng(1)
+    raw = r.standard_normal((3, 1 << 16)) * np.exp2(
+        r.integers(-6, 7, (3, 1 << 16)))
+    a, b, c = (sf.quantize64(torch.from_numpy(x), f).float() for x in raw)
+    on = [t.to(card) for t in (a, b, c)]
+    for name in ("sf_mul", "sf_add"):
+        got = getattr(sf, name)(on[0], on[1], f).cpu()
+        _exact(got, getattr(sf, name)(a, b, f))
+    for name in ("sf_fma", "sf_cma"):
+        got = getattr(sf, name)(*on, f).cpu()
+        _exact(got, getattr(sf, name)(a, b, c, f))
+    wide = [torch.from_numpy(x) for x in raw]
+    for name in ("dp_cma", "dp_fma"):
+        got = getattr(sf, name)(*(t.to(card) for t in wide)).cpu()
+        _exact(got, getattr(sf, name)(*wide))
+    samples = torch.from_numpy(AccuracyModel()._samples())
+    da = sf.quantize64(samples[:, 0], f).float()
+    db = sf.quantize64(samples[:, 1], f).float()
+    for style in STYLES:
+        got = emulated_dot(da.to(card), db.to(card), fmt=f, style=style)
+        assert got.device.type == "cuda"
+        _exact(got.cpu(), emulated_dot(da, db, fmt=f, style=style))

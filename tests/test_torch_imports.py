@@ -61,7 +61,8 @@ def test_slice_modules_are_scanned():
                 "core/objective.py", "core/energy_model.py",
                 "core/latency_sim.py", "core/dse.py", "core/body_bias.py",
                 "core/localsearch.py", "core/trace.py", "core/autotune.py",
-                "numerics/registry.py"):
+                "numerics/registry.py", "core/softfloat.py",
+                "core/chip.py", "numerics/accuracy.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -103,8 +104,10 @@ def test_dse_entry_points_raise_without_cuda(monkeypatch):
     """The DSE core's device work (the fit, the batched model, the latency
     simulator) runs on the card unless the caller passes a device; its
     numpy routes need none."""
-    from repro_torch.core import autotune, dse, energy_model, latency_sim
+    from repro_torch.core import (autotune, chip, dse, energy_model,
+                                  latency_sim, softfloat)
     from repro_torch.core.fpu_arch import FABRICATED
+    from repro_torch.numerics import emulated_dot
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = energy_model.TechParams(tuple(
         s[1] for s in energy_model._PARAM_SPEC))
@@ -122,7 +125,21 @@ def test_dse_entry_points_raise_without_cuda(monkeypatch):
              lambda: latency_sim.calibrated_spec_mix(),
              lambda: dse.sweep_arrays(units, params),
              lambda: autotune.autotune(autotune.GEMM_STREAM, "sp",
-                                       designs=units, params=params)]
+                                       designs=units, params=params),
+             lambda: autotune.autotune(autotune.GEMM_STREAM, "sp",
+                                       designs=units, params=params,
+                                       accuracy_slo=1e-2),
+             lambda: chip.fabricated_chip(),
+             lambda: chip.default_chip("sp", params),
+             lambda: chip.ChipPolicy(chip.fabricated_chip(
+                 params=params)).params,
+             lambda: chip.tune_chip([chip.PhaseSpec(
+                 "train", autotune.GEMM_STREAM, designs=tuple(units))],
+                 params=params),
+             lambda: softfloat.sf_fma(1.0, 2.0, 3.0, tf.BF16),
+             lambda: softfloat.dp_fma(np.ones(3), np.ones(3), np.ones(3)),
+             lambda: emulated_dot(np.ones((2, 4)), np.ones((2, 4)),
+                                  fmt="bf16")]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -184,9 +184,23 @@ def test_server_deadlines_and_rejects(dense):
 
 
 def test_server_chip_policy_waits_for_its_slice(dense):
-    _, model, params = dense
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedServer(model, params, slots=2, max_len=16, chip_policy=object())
+    """The chip facade's slice has landed: a chip policy splits the slots
+    into one fleet per decode unit, routes and charges each request
+    (tests/test_torch_serve_chip.py holds it to the JAX engine)."""
+    from repro_torch.core import chip
+    from repro_torch.core import energy_model as em
+    cfg, model, params = dense
+    tech = em.TechParams(tuple(s[1] for s in em._PARAM_SPEC))
+    policy = chip.ChipPolicy(chip.fabricated_chip("sp", tech), tech)
+    server = BatchedServer(model, params, slots=2, max_len=16,
+                           chip_policy=policy, deadline_routing=True)
+    assert sorted(server.fleet_report()) == ["sp_cma", "sp_fma"]
+    r = Request(uid=0, prompt=_prompts(cfg.vocab_size, (4,))[0],
+                max_new_tokens=2)
+    server.submit(r)
+    server.run()
+    assert r.routed_unit == "sp_fma" and len(r.output) == 2
+    assert r.energy_j > 0 and sorted(r.unit_energy_j) == ["sp_fma"]
 
 
 @pytest.mark.parametrize("chunk", [None, 4], ids=["monolithic", "chunked"])

@@ -99,6 +99,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
      through its strides) exactly equal to its plain version; K5's and
      K6's times at the scan shape beside their bound, and a profile of one
      decode step;
+  4a. the hybrid path at the full width and depth of zamba2-1.2b (each
+     model of 4a-4c freed before the next), counters set to 0 just before:
+     ``BatchedServer`` and ``greedy_decode`` as in 4 in bf16 (twice the
+     model's own noise floor; the two streams parting only where the
+     single-lane decode path puts their picks within twice the measured
+     gap between one lane and the server's batch), a server prefilling in
+     64-token chunks (its parting from the monolithic streams judged the
+     same way, the chunked prefill's own gap added), the same requests in
+     float32 (4 * 2**-8), one 4x128 prefill and 4 decode steps under
+     EmulatedPolicy(bf16, fused) with 37 K1 launches per forward (six
+     shared-block projections per application, six applications, the
+     unembed), and a profile of one decode step;
+  4b. the MoE path at the full width and depth of deepseek-moe-16b (fp8 KV
+     cache): served at ``capacity_factor = n_experts`` (nothing drops) in
+     bf16 (timed, not held); the same requests at the config's 1.25 with
+     each prefill forward's dropped share (``LM.apply(moe_stats=True)`` on
+     the server's own batches) and the tokens that differ printed; two
+     identical prefills bitwise equal; 113 K1 launches per emulated
+     forward; layer 0's MoE on the largest served prefill's input against
+     the CPU (picks, keep mask and slots identical, output within
+     4 * 2**-8); last, the bf16 weights widened to float32 leaf by leaf
+     and the no-drop requests served again at full depth with a float32
+     KV cache, every token and greedy_decode's held to 4 * 2**-8 of
+     ``LM.apply`` (the fp8 cache rounds the shapes' last-bit differences
+     to whole fp8 steps, beyond that share at this depth);
+  4c. the sliding-window path of mixtral-8x7b at full width, 4 of its 32
+     layers (one card holds no more), its 4096-slot ring KV cache, at
+     ``capacity_factor = n_experts``: prompts of 700-4200 tokens served
+     and decoded past the window's edge (float32 held to 4 * 2**-8, bf16
+     timed), a 4600-token ``prefill_chunked`` in chunks of 1000 against
+     ``prefill`` (layer 0's ring bitwise in bf16; in float32 the last
+     logits and every layer's ring within 1e-4 of their max |value|),
+     17 K1 launches per emulated forward;
   5. the paper's DSE core at full size on the card (it launches none of
      K1-K6, so it has no launch window): the chip phase's ``calibrate``
      (6000 float32 Adam steps) within rtol 1e-3 of the same fit on the CPU, its Table I
@@ -138,6 +171,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+STARTED = time.perf_counter()
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -200,6 +235,8 @@ NO_LIBRARY_SCAN = ("none: no single PyTorch call computes a selective scan "
 
 
 def emit(record):
+    """Print one record, with the seconds since the script started."""
+    record = dict(record, elapsed_s=time.perf_counter() - STARTED)
     print(json.dumps(record), flush=True)
 
 
@@ -853,8 +890,12 @@ def check_flash_kernels(dev):
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
-def serve_full_width(model, params, rng, noise_floor=False):
-    """``BatchedServer`` answers SERVE's requests (after a warm-up), then
+def serve_full_width(model, params, rng, noise_floor=False, spec=SERVE,
+                     lens=None, prefill_chunk=None, parting_on_decode=False,
+                     greedy=None):
+    """``BatchedServer`` answers ``spec``'s requests (after a warm-up;
+    prompts of ``lens`` tokens, or of lengths drawn from ``spec``'s range;
+    with ``prefill_chunk`` the server prefills in chunks), then
     every token of every request, and of ``greedy_decode``'s stream for the
     same prompt, is held to one ``LM.apply`` over its whole stream: its
     logit within a share of max |logit| of the top one.  The share is
@@ -863,16 +904,39 @@ def serve_full_width(model, params, rng, noise_floor=False):
     last logits lie from ``LM.apply``'s at the same position (two shapes of
     the same computation), itself held under FLOOR_CAP.  The server's and
     ``greedy_decode``'s streams must also agree up to the first position
-    where ``LM.apply``'s top two logits lie within NEAR_TIE of max |logit|.
+    where ``LM.apply``'s top two logits lie within NEAR_TIE of max |logit|;
+    with ``parting_on_decode`` instead where the single-lane decode path
+    (``greedy_decode``'s own logits) puts the two picks within twice the
+    measured gap between a decode step run as one lane and in the server's
+    batch (``lane_gap``), NEAR_TIE at least.  ``greedy``: greedy_decode's
+    streams for these prompts, already held in an earlier call.
+
+    A model whose KV cache is narrower than its compute dtype is held
+    instead to the single-lane path ``greedy_decode`` takes, ``prefill``
+    and ``decode_step`` replayed along the server's own stream
+    (``LM.apply`` keeps no cache, so it is no reference for decoded
+    tokens); that makes the agreement a check of the stream's every token.
+
+    A MoE below float32 is not held beyond every request completing with
+    tokens in range, and no reference is replayed for it: its routing
+    turns a last-bit difference between the server's shapes and the
+    reference's into another expert for a token, a deviation no noise
+    floor sampled at a few positions bounds; its float32 run carries the
+    gate.
     """
     from repro_torch.serve import BatchedServer, Request, greedy_decode
-    s = SERVE
-    lens = rng.integers(s["prompt_lo"], s["prompt_hi"] + 1, s["requests"])
+    s = spec
+    reference = "decode" if model.cache_dtype != model.dtype else "apply"
+    gate_tokens = not model.cfg.n_experts or model.dtype == torch.float32
+    if lens is None:
+        lens = rng.integers(s["prompt_lo"], s["prompt_hi"] + 1,
+                            s["requests"])
     prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in lens]
 
     def serve(batch):
         server = BatchedServer(model, params, slots=s["slots"],
-                               max_len=s["max_len"])
+                               max_len=s["max_len"],
+                               prefill_chunk=prefill_chunk)
         reqs = [Request(uid=i, prompt=p, max_new_tokens=s["new_tokens"])
                 for i, p in enumerate(batch)]
         for r in reqs:
@@ -892,25 +956,67 @@ def serve_full_width(model, params, rng, noise_floor=False):
               f"request {r.uid}: {len(r.output)} tokens")
         check(all(0 <= t < vocab for t in r.output), "token out of range")
     report = server.run_report()
+    n_tok = sum(len(r.output) for r in reqs)
+    rec = {"phase": "serve", "arch": model.cfg.name, "reference": reference,
+           "kv_cache_dtype": str(model.cache_dtype),
+           "dtype": model.cfg.dtype, "prefill_chunk": server.prefill_chunk,
+           "capacity_factor": model.cfg.capacity_factor
+           if model.cfg.n_experts else None, "slots": s["slots"],
+           "max_len": s["max_len"], "requests": len(reqs),
+           "prompt_lens": [int(n) for n in lens],
+           "new_tokens": s["new_tokens"], "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "dispatches": report["dispatches"],
+           "host_syncs": report["host_syncs"], "gated": gate_tokens}
+    streams = {}
+    if gate_tokens:
+        measured, streams = hold_streams(
+            model, params, reqs, prompts, s, noise_floor,
+            parting_on_decode and (server.prefill_chunk or 0), greedy)
+        rec.update(measured)
+    emit(rec)
+    rec.update(outputs=[r.output for r in reqs], prompts=prompts,
+               greedy=streams)
+    return rec
+
+
+def hold_streams(model, params, reqs, prompts, s, noise_floor,
+                 parting_on_decode, greedy):
+    """``serve_full_width``'s gates on the served streams; returns what
+    they measured and greedy_decode's streams by request.
+    ``parting_on_decode``: False, or the server's prefill chunk (0: none)
+    when the streams' parting is judged on the decode path."""
+    from repro_torch.serve import greedy_decode
+    reference = "decode" if model.cache_dtype != model.dtype else "apply"
     # every token of every request, and of greedy_decode's stream for the
     # same prompt, against one full-sequence forward on its own prefix
-    held, agree, floor = [], [], 0.0
+    held, agree, parts, gaps, floor = [], [], [], [], 0.0
+    streams = {}
     for r, prompt in zip(reqs, prompts):
-        ref = greedy_decode(model, params, prompt, s["new_tokens"],
-                            max_len=s["max_len"])
-        split = next((i for i, (x, y) in enumerate(zip(r.output, ref))
-                      if x != y), len(ref))
-        agree.append(split)
-        for what, stream in (("server", r.output), ("greedy_decode", ref)):
+        if reference == "decode":
+            shortfall, scale, _, rows = stream_vs_decode(
+                model, params, prompt, r.output, s["max_len"])
+            held.append((r.uid, "server", shortfall, scale))
+            pos = apply_along(model, params, prompt, r.output)
+            gaps.append((rows - pos).abs().max(-1).values
+                        / pos.abs().max(-1).values)
+            first = pos[0]
+        else:
             shortfall, scale, margin, first = stream_vs_apply(
-                model, params, prompt, stream)
-            held.append((r.uid, what, shortfall, scale))
+                model, params, prompt, r.output)
+            held.append((r.uid, "server", shortfall, scale))
+            ref = greedy[r.uid] if greedy else greedy_decode(
+                model, params, prompt, s["new_tokens"], max_len=s["max_len"])
+            streams[r.uid] = ref
+            if not greedy:
+                shortfall, scale, margin, _ = stream_vs_apply(
+                    model, params, prompt, ref)
+                held.append((r.uid, "greedy_decode", shortfall, scale))
+            split = next((i for i, (x, y) in enumerate(zip(r.output, ref))
+                          if x != y), len(ref))
+            agree.append(split)
             if split < len(ref):  # the prefixes agree up to here
-                check(float(margin[split]) <= NEAR_TIE * float(scale[split]),
-                      f"request {r.uid}: the server and greedy_decode part "
-                      f"at token {split}, where LM.apply's top two logits "
-                      f"are {float(margin[split] / scale[split])} of max "
-                      f"|logit| apart (a near tie is within {NEAR_TIE})")
+                parts.append((r.uid, prompt, ref, split, r.output[split],
+                              float(margin[split] / scale[split])))
         last, _ = model.prefill(params, torch.as_tensor(
             prompt[None], device=model.device))
         floor = max(floor, float((last[0].float() - first).abs().max()
@@ -920,6 +1026,31 @@ def serve_full_width(model, params, rng, noise_floor=False):
         check(floor <= FLOOR_CAP, f"prefill and LM.apply differ by {floor} "
               f"of max |logit|, more than rounding noise ({FLOOR_CAP})")
         share = max(NEAR_TIE, 2 * floor)
+    out = {"parting_gaps": [p[-1] for p in parts]}
+    if parting_on_decode is not False:
+        lanes = max(lane_gap(model, params, prompt, r.output[0], s)
+                    for r, prompt in zip(reqs, prompts))
+        chunks = max(chunk_gap(model, params, prompt, parting_on_decode)
+                     for prompt in prompts) if parting_on_decode else 0.0
+        limit = max(NEAR_TIE, 2 * (lanes + chunks))
+        on_decode = []
+        for uid, prompt, ref, split, pick, _ in parts:
+            on_decode.append(decode_parting(
+                model, params, prompt, ref, split, pick, s["max_len"]))
+            check(on_decode[-1] <= limit, f"request {uid}: the server and "
+                  f"greedy_decode part at token {split}, where the decode "
+                  f"path puts their picks {on_decode[-1]} of max |logit| "
+                  f"apart (limit {limit})")
+        out.update(lane_vs_batch_rel_logit_gap=lanes,
+                   chunked_vs_prefill_rel_logit_gap=chunks,
+                   parting_limit_on_decode=limit,
+                   parting_gaps_on_decode=on_decode)
+    else:
+        for uid, _, _, split, _, gap in parts:
+            check(gap <= NEAR_TIE, f"request {uid}: the server and "
+                  f"greedy_decode part at token {split}, where LM.apply's "
+                  f"top two logits are {gap} of max |logit| apart (a near "
+                  f"tie is within {NEAR_TIE})")
     worst, exact = 0.0, 0
     for uid, what, shortfall, scale in held:
         over = shortfall / (share * scale)
@@ -929,24 +1060,89 @@ def serve_full_width(model, params, rng, noise_floor=False):
               f"(worst {float(over.max())} of the limit)")
         worst = max(worst, float(over.max()))
         exact += int((shortfall == 0).sum())
-    n_tok = sum(len(r.output) for r in reqs)
-    rec = {"phase": "serve", "arch": model.cfg.name,
-           "dtype": model.cfg.dtype, "slots": s["slots"],
-           "max_len": s["max_len"], "requests": len(reqs),
-           "prompt_lens": [int(n) for n in lens],
-           "new_tokens": s["new_tokens"], "wall_s": wall,
-           "tokens_per_s": n_tok / wall, "dispatches": report["dispatches"],
-           "host_syncs": report["host_syncs"],
-           "tokens_checked": 2 * n_tok, "tokens_at_apply_argmax": exact,
-           "prefill_vs_apply_rel_logit_gap": floor,
-           "limit_share_of_max_logit": share,
-           "limit_from_noise_floor": noise_floor,
-           "worst_shortfall_over_limit": worst,
-           "tokens_within_near_tie": sum(
-               int((sh <= NEAR_TIE * sc).sum()) for _, _, sh, sc in held),
-           "server_greedy_agreeing_prefix": agree}
-    emit(rec)
-    return rec
+    out.update({"tokens_checked": len(held) * s["new_tokens"],
+                "tokens_at_reference_argmax": exact,
+                "prefill_vs_apply_rel_logit_gap": floor,
+                "limit_share_of_max_logit": share,
+                "limit_from_noise_floor": noise_floor,
+                "worst_shortfall_over_limit": worst,
+                "tokens_within_near_tie": sum(
+                    int((sh <= NEAR_TIE * sc).sum())
+                    for _, _, sh, sc in held),
+                "server_greedy_agreeing_prefix": agree})
+    if gaps:  # how far the decode path lies from LM.apply on its tokens
+        gaps = torch.cat(gaps)
+        out["decode_vs_apply_rel_logit_gap"] = dict(
+            median=float(gaps.median()), max=float(gaps.max()))
+    return out, streams
+
+
+def lane_gap(model, params, prompt, tok, s):
+    """How far one decode step's logits after ``prompt`` (fed ``tok``)
+    lie apart run as one lane and as lane 0 of the server's ``slots``
+    lanes holding the same cache, as a share of max |logit|: the decode
+    batch's own rounding noise."""
+    from repro_torch.models.model import DecodeCache
+    dev = model.device
+    _, cache = model.prefill(params, torch.as_tensor(prompt[None],
+                                                     device=dev),
+                             max_len=s["max_len"])
+    wide = DecodeCache({k: t.repeat_interleave(s["slots"], dim=1)
+                        for k, t in cache.data.items()}, cache.length)
+    rows = [model.decode_step(params, c, torch.full(
+        (b, 1), int(tok), device=dev))[0][0, -1].float()
+        for b, c in ((1, cache), (s["slots"], wide))]
+    return float((rows[0] - rows[1]).abs().max() / rows[0].abs().max())
+
+
+def chunk_gap(model, params, prompt, chunk):
+    """How far ``prefill_chunked`` in ``chunk``-token chunks puts the
+    prompt's last logits from ``prefill``'s, as a share of max |logit|."""
+    toks = torch.as_tensor(prompt[None], device=model.device)
+    want, _ = model.prefill(params, toks)
+    got, _ = model.prefill_chunked(params, toks, chunk)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def decode_parting(model, params, prompt, stream, split, pick, max_len):
+    """Where ``pick`` parts from ``stream`` at ``split``: how far apart the
+    single-lane decode path, on ``prompt`` and ``stream[:split]``, puts the
+    two tokens' logits, as a share of max |logit| there."""
+    _, _, _, rows = stream_vs_decode(model, params, prompt,
+                                     stream[:split + 1], max_len)
+    row = rows[split]
+    return float((row[stream[split]] - row[pick]).abs() / row.abs().max())
+
+
+def stream_vs_decode(model, params, prompt, stream, max_len):
+    """``stream_vs_apply``'s first three, from ``prefill`` of the prompt and
+    ``decode_step`` on each earlier token of the stream (one lane, the
+    model's own cache), and those logits."""
+    dev = model.device
+    last, cache = model.prefill(params, torch.as_tensor(prompt[None],
+                                                        device=dev),
+                                max_len=max_len)
+    rows = [last[0]]
+    for t in stream[:-1]:
+        logits, cache = model.decode_step(
+            params, cache, torch.tensor([[int(t)]], device=dev))
+        rows.append(logits[0, -1])
+    pos = torch.stack(rows).float()
+    chosen = torch.as_tensor(stream, device=dev)[:, None]
+    top2 = pos.topk(2, dim=-1).values
+    shortfall = top2[:, 0] - pos.gather(-1, chosen)[:, 0]
+    return (shortfall, pos.abs().max(-1).values, top2[:, 0] - top2[:, 1],
+            pos)
+
+
+def apply_along(model, params, prompt, stream):
+    """``LM.apply``'s logits for each token of ``stream`` generated after
+    ``prompt``: one forward over the prompt and the stream's earlier
+    tokens, (len(stream), vocab) in float32."""
+    toks = np.concatenate([prompt, np.asarray(stream[:-1], np.int64)])
+    logits, _ = model.apply(params, torch.as_tensor(toks[None],
+                                                    device=model.device))
+    return logits[0, len(prompt) - 1:].float()
 
 
 def stream_vs_apply(model, params, prompt, stream):
@@ -955,10 +1151,7 @@ def stream_vs_apply(model, params, prompt, stream):
     logit falls short of that position's top logit, max |logit| there, the
     gap between the top two logits there, and the logits at the prompt's
     last position."""
-    toks = np.concatenate([prompt, np.asarray(stream[:-1], np.int64)])
-    logits, _ = model.apply(params, torch.as_tensor(toks[None],
-                                                    device=model.device))
-    pos = logits[0, len(prompt) - 1:].float()  # (len(stream), vocab)
+    pos = apply_along(model, params, prompt, stream)
     chosen = torch.as_tensor(stream, device=pos.device)[:, None]
     top2 = pos.topk(2, dim=-1).values
     shortfall = top2[:, 0] - pos.gather(-1, chosen)[:, 0]
@@ -1192,17 +1385,19 @@ def chip_full_width(model, params, rng, tech):
           "worst_shortfall_over_limit": worst, "numerics": numerics})
 
 
-def serve_f32(cfg, params, dev):
-    """The served-token check of ``serve_full_width`` on the same model and
-    requests computed in float32 (the bf16 weights widened, exactly), held
-    to NEAR_TIE itself.  In bf16 the model's own rounding noise at this
-    depth is above NEAR_TIE (the bf16 run measures it), so here the
-    serving, state and chunking logic is all the tight limit can see."""
+def serve_f32(cfg, params, dev, **kw):
+    """The served-token check of ``serve_full_width`` (``kw``: its request
+    options) on the same model and requests computed in float32 (the bf16
+    weights widened, exactly), held to NEAR_TIE itself.  In bf16 the
+    model's own rounding noise at this depth is above NEAR_TIE (the bf16
+    run measures it), so here the serving, state and chunking logic is all
+    the tight limit can see."""
     import dataclasses
     from repro_torch.models import LM
     model = LM(dataclasses.replace(cfg, dtype="float32"), device=dev)
     wide = tree_map(lambda t: t.float(), params)
-    rec = serve_full_width(model, wide, np.random.default_rng(SEED + 1))
+    rec = serve_full_width(model, wide, np.random.default_rng(SEED + 1),
+                           **kw)
     del model, wide
     gc.collect()
     torch.cuda.empty_cache()
@@ -1749,6 +1944,475 @@ def profile_decode(model, params, rng):
 
 
 # ---------------------------------------------------------------------------
+# phases 4a-4c: the hybrid, MoE and sliding-window families at full width
+# ---------------------------------------------------------------------------
+HYBRID_ARCH = "zamba2-1.2b"
+MOE_ARCH = "deepseek-moe-16b"
+WINDOW_ARCH = "mixtral-8x7b"
+# the hybrid's chunked server: the engine rounds the chunk up to the scan's
+# 64-token carry points
+HYBRID_CHUNK = 64
+# mixtral-8x7b's 32 layers hold ~93 GB of bf16 weights, more than one
+# H100's 80 GB: the window phase keeps every width and cuts the depth
+WINDOW_LAYERS = 4
+# prompts below, just under and beyond the 4096-token window; 32 new
+# tokens take the 4090-token prompt across the window's edge in decode
+WINDOW_SERVE = dict(slots=4, max_len=4096 + 512, new_tokens=32)
+WINDOW_LENS = (700, 4090, 4200, 2500)
+# one prefill_chunked of this many tokens in chunks of this size: the last
+# chunk (4000-4599) crosses the window's edge at 4096
+WINDOW_CHUNKED = dict(prompt=4600, chunk=1000)
+# prefill_chunked against prefill in float32: the last logits, and each
+# layer's ring, within this share of their max |value| (the chunk's
+# attention and the monolithic forward sum in other orders; the readings on
+# an H100 are 5.9e-6 for the logits and about 1e-5 for the rings, and the
+# bound predicted before any reading was 1e-4)
+CHUNKED_F32 = 1e-4
+
+
+def init_model(cfg, dev, **record):
+    """The model and its random bf16 parameters, with an ``init`` record
+    (``record``: what else to print, such as a cut of depth)."""
+    from repro_torch.models import LM
+    model = LM(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(seed=SEED)
+    torch.cuda.synchronize()
+    emit({"phase": "init", "arch": cfg.name, "seconds":
+          time.perf_counter() - t0, "parameters": sum(
+              t.numel() for t in tree_leaves(params)),
+          "device_bytes": torch.cuda.memory_allocated(), **record})
+    return model, params
+
+
+def release():
+    """Return the card memory of what the caller has dropped."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def emulated_forwards(model, params, rng, per_fwd, steps=4):
+    """One EMU-shaped prefill and ``steps`` decode steps under
+    EmulatedPolicy(bf16, fused): every forward launches K1 ``per_fwd``
+    times (the attention projections, the dense MLPs and the unembed; no
+    Mamba projection, expert or router), and the logits are finite."""
+    from repro_torch.kernels.fused import fused_qmm
+    from repro_torch.models.numerics import EmulatedPolicy
+    cfg, dev = model.cfg, model.device
+    pol = EmulatedPolicy("bf16", "fused")
+    B, S = EMU["batch"], EMU["prompt"]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device=dev)
+    c0 = fused_qmm.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, toks, max_len=S + steps + 1,
+                                policy=pol)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    got = fused_qmm.launches - c0
+    check(got == per_fwd, f"{cfg.name} emulated prefill: {got} K1 launches, "
+          f"expected {per_fwd}")
+    check(bool(torch.isfinite(last).all()), "non-finite emulated logits")
+    cache = model.cache_at_length(cache, torch.full((B,), S))
+    c1 = fused_qmm.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, tok, _, _, stream, _ = model.decode_scan(
+        params, cache, torch.argmax(last, dim=-1)[:, None],
+        torch.ones(B, dtype=torch.bool, device=dev),
+        torch.full((B,), steps, dtype=torch.int64, device=dev), steps,
+        policy=pol)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    got = fused_qmm.launches - c1
+    check(got == steps * per_fwd, f"{cfg.name} emulated decode: {got} K1 "
+          f"launches, expected {steps * per_fwd}")
+    native, _ = model.prefill(params, toks, max_len=S + 1)
+    emit({"phase": "emulated", "arch": cfg.name, "policy": "bf16/fused",
+          "batch": B, "prompt": S, "decode_steps": steps,
+          "k1_launches_per_forward": per_fwd, "prefill_s": t_prefill,
+          "decode_s": t_decode, "decode_tokens_per_s": B * steps / t_decode,
+          "rel_gap_to_native_bf16": float((last - native).abs().max()
+                                          / native.abs().max())})
+
+
+def chunked_server(model, params, mono):
+    """The monolithic server's requests again through a server that
+    prefills in HYBRID_CHUNK-token chunks: every ``serve_full_width`` gate
+    on its streams (greedy_decode's were held in the monolithic run), and
+    wherever a chunked stream parts from the monolithic one, the
+    single-lane decode path puts the two picks within the chunked run's
+    parting limit (twice the lanes' gap plus the chunked prefill's)."""
+    rec = serve_full_width(model, params, np.random.default_rng(SEED + 1),
+                           noise_floor=True, prefill_chunk=HYBRID_CHUNK,
+                           parting_on_decode=True, greedy=mono["greedy"])
+    check(rec["prefill_chunk"] == HYBRID_CHUNK, "chunk not on the scan's "
+          "carry points")
+    limit = rec["parting_limit_on_decode"]
+    parts, gaps, same = [], [], 0
+    for prompt, got, want in zip(rec["prompts"], rec["outputs"],
+                                 mono["outputs"]):
+        split = next((i for i, (x, y) in enumerate(zip(got, want))
+                      if x != y), len(want))
+        parts.append(split)
+        same += sum(int(x == y) for x, y in zip(got, want))
+        if split < len(want):
+            gaps.append(decode_parting(model, params, prompt, want, split,
+                                       got[split], SERVE["max_len"]))
+            check(gaps[-1] <= limit, f"the chunked server parts from the "
+                  f"monolithic one at token {split}, where the decode path "
+                  f"puts their picks {gaps[-1]} of max |logit| apart "
+                  f"(limit {limit})")
+    emit({"phase": "serve_chunked_vs_monolithic", "arch": model.cfg.name,
+          "prefill_chunk": HYBRID_CHUNK, "tokens": sum(map(len, mono[
+              "outputs"])), "tokens_equal": same,
+          "agreeing_prefix": parts, "parting_limit_on_decode": limit,
+          "parting_gaps_on_decode": gaps})
+
+
+def hybrid_path(dev, drive, rng):
+    """zamba2-1.2b at full width and depth: served in bf16 (monolithic and
+    chunked, held to twice the model's own bf16 noise floor) and in
+    float32 (held to NEAR_TIE), one emulated prefill and decode with 37 K1
+    launches per forward (six shared-block projections per application,
+    six applications, and the unembed), and a profile of one decode
+    step."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(HYBRID_ARCH)
+    model, params = init_model(cfg, dev)
+    per_fwd = 6 * model.n_shared_applications + 1
+    mono = {}
+    drive(HYBRID_ARCH, ("fused_qmm",),
+          lambda: mono.update(serve_full_width(
+              model, params, np.random.default_rng(SEED + 1),
+              noise_floor=True, parting_on_decode=True)),
+          lambda: chunked_server(model, params, mono),
+          lambda: serve_f32(cfg, params, dev),
+          lambda: emulated_forwards(model, params, rng, per_fwd))
+    profile_decode(model, params, rng)
+
+
+def prefill_log():
+    """A tracer for ``BatchedServer(tracer=...)`` that keeps each prefill
+    event (its time, bucket and request, in the order of the batch's rows)
+    and ignores every other hook."""
+    from repro_torch.telemetry.tracer import Event, NullTracer
+
+    class PrefillLog(NullTracer):
+        enabled = True
+
+        def __init__(self):
+            self.prefills = []
+
+        def event(self, uid, type, t, **attrs):
+            if type == Event.PREFILL:
+                self.prefills.append((t, attrs["bucket"], uid))
+
+        def charge(self, *args, **kw):
+            return None
+
+    return PrefillLog()
+
+
+def moe_layer0_input(model, params, toks):
+    """The input of layer 0's MoE in a forward over ``toks``: the block's
+    first half, as ``attn_block_apply`` computes it."""
+    from repro_torch.models.flash_vjp import flash_attention_trainable
+    from repro_torch.models.layers import embed_apply, rmsnorm
+    from repro_torch.models.model import _layer, _qkv
+    from repro_torch.models.numerics import matmul
+    cfg = model.cfg
+    p = _layer(params["layers"], 0)
+    x = embed_apply(params["embed"], toks)
+    B, S = toks.shape
+    positions = torch.arange(S, device=toks.device)[None, :]
+    q, k, v = _qkv(p, rmsnorm(p["ln1"], x), cfg, positions, None)
+    attn = flash_attention_trainable(q, k, v, causal=True, window=cfg.window)
+    x = x + matmul(attn.reshape(B, S, -1), p["wo"], None)
+    return rmsnorm(p["ln2"], x)
+
+
+def serve_with_drops(model, params, nodrop):
+    """The no-drop run's requests at the config's capacity factor: the
+    dropped share of every prefill forward and how many served tokens
+    differ from the no-drop run, as numbers (which entries drop depends on
+    every token the forward carries, pads included).  Each prefill's
+    shares are ``LM.apply(moe_stats=True)`` on the server's own batch,
+    rebuilt from its trace (bitwise the server's forward: the MoE is
+    deterministic, see ``moe_determinism``).  A decode step carries
+    ``slots`` tokens, within the capacity's floor, so none can drop.
+    Returns the input of layer 0's MoE in the prefill with the most
+    tokens."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import _layer
+    from repro_torch.serve import BatchedServer, Request
+    cfg, dev, s = model.cfg, model.device, SERVE
+    log = prefill_log()
+    server = BatchedServer(model, params, slots=s["slots"],
+                           max_len=s["max_len"], tracer=log)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=s["new_tokens"])
+            for i, p in enumerate(nodrop["prompts"])]
+    for r in reqs:
+        server.submit(r)
+    server.run()
+    check(all(r.done and len(r.output) == s["new_tokens"] for r in reqs),
+          "the capacity-factor server did not finish every request")
+    check(moe.capacity(s["slots"], cfg.experts_per_token, cfg.n_experts,
+                       cfg.capacity_factor) >= s["slots"],
+          "a decode step could drop")
+    batches = {}
+    for t, bucket, uid in log.prefills:
+        batches.setdefault((t, bucket), []).append(uid)
+    shares, sizes, biggest = [], [], None
+    for (_, bucket), uids in batches.items():
+        toks = np.full((len(uids), bucket), server.pad_id, np.int64)
+        for row, uid in enumerate(uids):
+            prompt = nodrop["prompts"][uid]
+            toks[row, :len(prompt)] = prompt
+        toks = torch.as_tensor(toks, device=dev)
+        _, aux = model.apply(params, toks, logits_last_only=True,
+                             moe_stats=True)
+        shares.append(aux["dropped_frac"])
+        sizes.append(toks.numel())
+        if biggest is None or toks.numel() > biggest[0].numel():
+            biggest = (toks, aux["dropped_frac"][0])
+    x = moe_layer0_input(model, params, biggest[0])
+    _, aux = moe.moe_apply(_layer(params["layers"], 0)["moe"], x,
+                           top_k=cfg.experts_per_token,
+                           capacity_factor=cfg.capacity_factor)
+    check(torch.equal(aux["dropped_frac"], biggest[1]), "layer 0's MoE "
+          "input is not the forward's")
+    differ = [sum(int(x != y) for x, y in zip(r.output, want))
+              for r, want in zip(reqs, nodrop["outputs"])]
+    emit({"phase": "moe_drops", "arch": cfg.name,
+          "capacity_factor": cfg.capacity_factor,
+          "prefill_forwards": len(sizes), "prefill_tokens_per_forward": sizes,
+          "prefill_dropped_share": [float(d.mean()) for d in shares],
+          "prefill_dropped_share_by_layer": [d.tolist() for d in shares],
+          "decode_dropped_share": 0.0,
+          "tokens": sum(map(len, nodrop["outputs"])),
+          "tokens_differing_from_no_drop_run": differ})
+    return x
+
+
+def moe_determinism(model, params, rng):
+    """Two identical 4x128 prefills (drops included) give the same bits:
+    last logits and the float8 KV cache."""
+    cfg, dev = model.cfg, model.device
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 128)),
+                           device=dev)
+    (l1, c1), (l2, c2) = (model.prefill(params, toks) for _ in range(2))
+    same = torch.equal(l1, l2) and all(
+        torch.equal(c1.data[k].view(torch.uint8), c2.data[k].view(
+            torch.uint8)) for k in ("k", "v"))
+    check(same, "two identical MoE prefills differ")
+    emit({"phase": "check", "what": "two identical 4x128 prefills, bitwise",
+          "arch": cfg.name, "capacity_factor": cfg.capacity_factor,
+          "equal": True})
+
+
+def moe_layer0_vs_cpu(model, params, x):
+    """Layer 0's MoE on the card against the same layer on the CPU, on its
+    input from the served prefill with the most tokens: the picks, the keep
+    mask, the slots and the tokens identical, two card runs bitwise equal,
+    the output within NEAR_TIE * max |out| (the experts' bf16 products sum
+    in another order on the CPU; each output is a few rounded adds of
+    those)."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import _layer
+    cfg = model.cfg
+    kw = dict(top_k=cfg.experts_per_token,
+              capacity_factor=cfg.capacity_factor)
+    card = _layer(params["layers"], 0)["moe"]
+    cpu = tree_map(lambda t: t.cpu(), card)
+    xf = x.reshape(-1, cfg.d_model)
+    got = moe.route(card["router"], xf, **kw)
+    want = moe.route(cpu["router"], xf.cpu(), **kw)
+    for name in ("top_i", "keep", "slot", "tok"):
+        check(torch.equal(getattr(got, name).cpu(), getattr(want, name)),
+              f"layer-0 MoE {name} differ between the card and the CPU")
+    check(got.cap == want.cap, "capacities differ")
+    out1, aux = moe.moe_apply(card, x, **kw)
+    out2, _ = moe.moe_apply(card, x, **kw)
+    check(torch.equal(out1, out2), "layer-0 MoE differs between two runs")
+    ref, aux_cpu = moe.moe_apply(cpu, x.cpu(), **kw)
+    err = float((out1.cpu().float() - ref.float()).abs().max())
+    limit = NEAR_TIE * float(ref.float().abs().max())
+    check(err <= limit, f"layer-0 MoE card vs CPU: {err} > {limit}")
+    emit({"phase": "check", "what": "layer-0 MoE, card vs CPU", "arch":
+          cfg.name, "tokens": xf.shape[0], "capacity": got.cap,
+          "dropped_share": float(aux["dropped_frac"]),
+          "dropped_share_cpu": float(aux_cpu["dropped_frac"]),
+          "picks_keep_slots_equal": True, "deterministic": True,
+          "max_abs_err": err, "limit": limit,
+          "entries_differing": int((out1.cpu() != ref).sum())})
+
+
+def moe_f32(cfg, box, dev):
+    """The moe phase's served-token check in float32 at full depth, at
+    ``capacity_factor = n_experts``, with a float32 KV cache: every token,
+    and greedy_decode's, within NEAR_TIE of ``LM.apply`` on its prefix.
+    The config's fp8 cache is left out here: it rounds the last-bit
+    differences between the server's batched shapes and a one-sequence
+    reference to whole fp8 steps (an e4m3 step is 6-12% of a value), and
+    at 28 layers that moved one served token of 256 to 9.2% of max |logit|
+    short of the single-lane decode path (chip run 1 of PR 20's review).
+    ``box`` holds the only reference to the bf16 parameters: they are
+    widened (exactly) one leaf at a time, largest first, each bf16 leaf
+    freed once widened."""
+    import dataclasses
+    from repro_torch.models import LM
+    model = LM(dataclasses.replace(cfg, dtype="float32", kv_cache_dtype=None,
+                                   capacity_factor=float(cfg.n_experts)),
+               device=dev)
+    params = box.pop()
+    leaves = []
+
+    def collect(tree):
+        for key, t in tree.items():
+            if isinstance(t, dict):
+                collect(t)
+            else:
+                leaves.append((tree, key))
+
+    collect(params)
+    torch.cuda.reset_peak_memory_stats()
+    for tree, key in sorted(leaves, key=lambda e: -e[0][e[1]].numel()):
+        tree[key] = tree[key].float()
+        release()
+    widened = torch.cuda.max_memory_allocated()
+    emit({"phase": "init", "arch": cfg.name, "dtype": "float32",
+          "device_bytes": torch.cuda.memory_allocated(),
+          "peak_bytes_while_widening": widened})
+    serve_full_width(model, params, np.random.default_rng(SEED + 1))
+    emit({"phase": "memory", "arch": cfg.name, "dtype": "float32",
+          "peak_bytes": torch.cuda.max_memory_allocated(),
+          "card_bytes": torch.cuda.get_device_properties(dev).total_memory})
+    del model, params
+    release()
+
+
+def moe_path(dev, drive, rng):
+    """deepseek-moe-16b at full width and depth (fp8 KV cache).  The served
+    tokens are gated on the same weights at ``capacity_factor =
+    n_experts``, at which nothing can drop: at the config's 1.25 which
+    tokens drop depends on the batch's composition, so a one-sequence
+    reference says nothing of a batched server's tokens.  The reference is
+    ``LM.apply``, held in float32 with a float32 cache within NEAR_TIE as
+    the phase's last step (``serve_full_width`` gates no bf16 MoE token;
+    the bf16 run on the fp8 cache is timed).
+    At 1.25 the same requests are served and their dropped shares and
+    token differences printed; two identical prefills must be bitwise
+    equal; one emulated prefill makes 113 K1 launches; layer 0's MoE is
+    held to the CPU."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import LM
+    cfg = get_config(MOE_ARCH)
+    model, params = init_model(cfg, dev)
+    nodrop = LM(dataclasses.replace(cfg, capacity_factor=float(
+        cfg.n_experts)), device=dev)
+    per_fwd = 4 * cfg.n_layers + 1
+    rec = {}
+    drive(MOE_ARCH, ("fused_qmm",),
+          lambda: rec.update(serve_full_width(
+              nodrop, params, np.random.default_rng(SEED + 1))),
+          lambda: rec.update(layer0=serve_with_drops(model, params, rec)),
+          lambda: moe_determinism(model, params, rng),
+          lambda: emulated_forwards(model, params, rng, per_fwd))
+    moe_layer0_vs_cpu(model, params, rec.pop("layer0"))
+    profile_decode(model, params, rng)
+    box = [params]
+    del model, nodrop, params, rec
+    release()
+    moe_f32(cfg, box, dev)
+
+
+def window_chunked(model, params):
+    """``prefill_chunked`` of WINDOW_CHUNKED's prompt against ``prefill``.
+    In bf16 (the model's own dtype), layer 0's ring (k and v) bitwise
+    equal: each position of the window at slot p % 4096.  In float32 the
+    last logits and every layer's ring within CHUNKED_F32 of their max
+    |value|.  The rest is printed.  The two are not bitwise on the card:
+    the chunk's attention sums over the ring's 4096 slots and the chunk in
+    one block, the monolithic forward over 1024-key blocks, and cuBLAS and
+    CUDA's reductions pick their order by shape (in float32 already layer
+    0's projections differ in the last bit; in bf16 their rounding absorbs
+    that); in bf16 a last-bit difference can move a token to another
+    expert, so there the logits' and later rings' gaps are printed only."""
+    cfg, dev = model.cfg, model.device
+    S, C = WINDOW_CHUNKED["prompt"], WINDOW_CHUNKED["chunk"]
+    toks = torch.as_tensor(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (1, S)), device=dev)
+    last_m, cm = model.prefill(params, toks, max_len=S)
+    last_c, cc = model.prefill_chunked(params, toks, C, max_len=S)
+    check(cm.data["k"].shape[2] == cfg.window, "the cache is not a ring")
+    f32 = cfg.dtype == "float32"
+    rings = {name: [float((cc.data[name][i].float() - cm.data[name][i]
+                           .float()).abs().max()
+                          / cm.data[name][i].float().abs().max())
+                    for i in range(cfg.n_layers)] for name in ("k", "v")}
+    for name, gaps in rings.items():
+        check(gaps[0] == 0.0 or f32, f"layer 0's ring {name} differs "
+              f"between prefill_chunked and prefill")
+        check(max(gaps) <= CHUNKED_F32 or not f32, f"prefill_chunked vs "
+              f"prefill: ring {name} {gaps} of max |{name}| apart, more "
+              f"than {CHUNKED_F32}")
+    gap = float((last_c - last_m).abs().max() / last_m.abs().max())
+    check(gap <= CHUNKED_F32 or not f32, f"prefill_chunked vs prefill: "
+          f"last logits {gap} of max |logit| apart, more than {CHUNKED_F32}")
+    emit({"phase": "window_prefill_chunked", "arch": cfg.name,
+          "dtype": cfg.dtype, "prompt": S, "chunk": C, "ring": cfg.window,
+          "ring_rel_gap_by_layer": rings,
+          "logits_bitwise": bool(torch.equal(last_c, last_m)),
+          "last_logits_rel_gap": gap,
+          "limit": CHUNKED_F32 if f32 else None})
+
+
+def window_f32(cfg, params, dev):
+    """The window phase's serving check and chunked prefill in float32
+    (the bf16 weights widened, exactly), held to NEAR_TIE."""
+    import dataclasses
+    from repro_torch.models import LM
+    model = LM(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    wide = tree_map(lambda t: t.float(), params)
+    serve_full_width(model, wide, np.random.default_rng(SEED + 1),
+                     spec=WINDOW_SERVE, lens=WINDOW_LENS)
+    window_chunked(model, wide)
+    del model, wide
+    release()
+
+
+def window_path(dev, drive, rng):
+    """mixtral-8x7b at full width, its depth cut to WINDOW_LAYERS, with its
+    4096-slot ring KV cache, at ``capacity_factor = n_experts`` (nothing
+    drops): prompts shorter and longer than the window served in float32
+    (held to NEAR_TIE) and bf16 (printed), decode past the
+    window's edge, a ``prefill_chunked`` across that edge, one emulated
+    prefill and decode (4 projections a layer and the unembed through K1),
+    and a profile of one decode step."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    full = get_config(WINDOW_ARCH)
+    cfg = dataclasses.replace(full, n_layers=WINDOW_LAYERS,
+                              capacity_factor=float(full.n_experts))
+    model, params = init_model(cfg, dev, reduced={
+        "n_layers": [full.n_layers, WINDOW_LAYERS],
+        "why": "32 layers of bf16 weights (~93 GB) exceed one H100's 80 GB"})
+    per_fwd = 4 * WINDOW_LAYERS + 1
+    drive(f"{WINDOW_ARCH} window", ("fused_qmm",),
+          lambda: serve_full_width(
+              model, params, np.random.default_rng(SEED + 1),
+              noise_floor=True, spec=WINDOW_SERVE, lens=WINDOW_LENS),
+          lambda: window_chunked(model, params),
+          lambda: window_f32(cfg, params, dev),
+          lambda: emulated_forwards(model, params, rng, per_fwd))
+    profile_decode(model, params, rng)
+
+
+# ---------------------------------------------------------------------------
 # the paper's DSE core: gates from the JAX package's own tests
 # (tests/test_golden_fpmax.py's Table I residual envelope and ANCHOR_RTOL,
 # tests/test_latency_and_dse.py's body-bias bounds)
@@ -2171,6 +2835,13 @@ def main():
     kernels += time_scan_kernels(dev, operands, ssm_counts, errs)
     del operands
     profile_decode(smodel, sparams, rng)
+    del smodel, sparams
+    release()
+
+    # the hybrid, MoE and sliding-window families, one model at a time
+    for path in (hybrid_path, moe_path, window_path):
+        path(dev, drive, rng)
+        release()
     for row in kernels:  # launches on every path of this run
         row["max_abs_err"] = errs[row["name"]]
         by_path = {path: counts[row["name"]]
@@ -2179,9 +2850,6 @@ def main():
         row["launches_by_path"] = by_path
 
     # the paper's DSE core: no kernel of K1-K6, so no launch window
-    del smodel, sparams
-    gc.collect()
-    torch.cuda.empty_cache()
     dse_full_size(dev, smi, tech, fit_s)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -1,3 +1,4 @@
-"""Model families of the port (so far: the dense decoder LM and the
-attention-free ssm family, Mamba-1; ``ssm`` also holds the Mamba-2 block)."""
+"""Model families of the port: the dense decoder LM, the MoE family
+(``moe``), the attention-free ssm family (Mamba-1) and the hybrid family
+(Mamba-2 with a shared attention block; ``ssm`` holds both blocks)."""
 from repro_torch.models.model import LM, DecodeCache  # noqa: F401

@@ -5,8 +5,8 @@ parity tests export the reference's parameter tree (as numpy arrays) and
 load it here: both packages then compute from the same weights.
 
 Each leaf takes the dtype the reference's ``init`` gives it: ``cfg.dtype``
-for most, float32 for the ssm family's ``dt_bias``, ``A_log`` and ``D``
-(float32 even in a bfloat16 model).
+for most, float32 for the Mamba blocks' ``dt_bias``, ``A_log`` and ``D``
+and the MoE router (float32 even in a bfloat16 model).
 """
 from __future__ import annotations
 
@@ -32,36 +32,68 @@ def _to_tensor(arr, dtype, device) -> torch.Tensor:
 def _ssm_layers(cfg: ArchConfig) -> Dict:
     d, L, N = cfg.d_model, cfg.n_layers, cfg.ssm_state
     d_in = cfg.ssm_expand * d
-    dt_rank = max(d // 16, 1)
     f32 = torch.float32
-    return {"ln": {"scale": (L, d)}, "mamba": {
-        "in_proj": (L, d, 2 * d_in), "conv_w": (L, cfg.ssm_conv, d_in),
-        "conv_b": (L, d_in), "x_proj": (L, d_in, dt_rank + 2 * N),
-        "dt_proj": (L, dt_rank, d_in), "dt_bias": ((L, d_in), f32),
-        "A_log": ((L, d_in, N), f32), "D": ((L, d_in), f32),
-        "out_proj": (L, d_in, d)}}
+    if cfg.ssm_version == 1:
+        dt_rank = max(d // 16, 1)
+        mamba = {
+            "in_proj": (L, d, 2 * d_in), "conv_w": (L, cfg.ssm_conv, d_in),
+            "conv_b": (L, d_in), "x_proj": (L, d_in, dt_rank + 2 * N),
+            "dt_proj": (L, dt_rank, d_in), "dt_bias": ((L, d_in), f32),
+            "A_log": ((L, d_in, N), f32), "D": ((L, d_in), f32),
+            "out_proj": (L, d_in, d)}
+    else:
+        H, conv_c = d_in // cfg.ssm_head_dim, d_in + 2 * N
+        mamba = {
+            "in_proj": (L, d, 2 * d_in + 2 * N + H),
+            "conv_w": (L, cfg.ssm_conv, conv_c), "conv_b": (L, conv_c),
+            "A_log": ((L, H), f32), "dt_bias": ((L, H), f32),
+            "D": ((L, H), f32), "norm": {"scale": (L, d_in)},
+            "out_proj": (L, d_in, d)}
+    return {"ln": {"scale": (L, d)}, "mamba": mamba}
+
+
+def _attn_block(cfg: ArchConfig, lead) -> Dict:
+    """One attention block's leaves, each with the leading ``lead``."""
+    d, hd, q, kv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def s(*shape, dtype=None):
+        return (lead + shape, dtype) if dtype else lead + shape
+
+    block = {"ln1": {"scale": s(d)}, "ln2": {"scale": s(d)},
+             "wq": s(d, q * hd), "wk": s(d, kv * hd), "wv": s(d, kv * hd),
+             "wo": s(q * hd, d)}
+    if cfg.qkv_bias:
+        block.update(bq=s(q * hd), bk=s(kv * hd), bv=s(kv * hd))
+    if cfg.family == "moe":
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        moe = {"router": s(d, E, dtype=torch.float32),
+               "w_gate": s(E, d, f), "w_up": s(E, d, f),
+               "w_down": s(E, f, d)}
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * f
+            moe["shared"] = {"w_gate": s(d, fs), "w_up": s(d, fs),
+                             "w_down": s(fs, d)}
+        block["moe"] = moe
+    elif cfg.mlp_act == "swiglu":
+        block["mlp"] = {"w_gate": s(d, cfg.d_ff), "w_up": s(d, cfg.d_ff),
+                        "w_down": s(cfg.d_ff, d)}
+    else:
+        block["mlp"] = {"w_up": s(d, cfg.d_ff), "w_down": s(cfg.d_ff, d)}
+    return block
 
 
 def _expected_shapes(cfg: ArchConfig) -> Dict:
     """The tree's keys with each leaf's shape, or (shape, dtype) where the
     leaf's dtype is not ``cfg.dtype``."""
-    d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
-    if cfg.family == "ssm":
-        return {"embed": (_pad_vocab(cfg.vocab_size), d),
-                "final_norm": {"scale": (d,)}, "layers": _ssm_layers(cfg)}
-    layers = {
-        "ln1": {"scale": (L, d)}, "ln2": {"scale": (L, d)},
-        "wq": (L, d, cfg.n_heads * hd), "wk": (L, d, cfg.n_kv_heads * hd),
-        "wv": (L, d, cfg.n_kv_heads * hd), "wo": (L, cfg.n_heads * hd, d),
-        "mlp": ({"w_gate": (L, d, cfg.d_ff), "w_up": (L, d, cfg.d_ff),
-                 "w_down": (L, cfg.d_ff, d)} if cfg.mlp_act == "swiglu"
-                else {"w_up": (L, d, cfg.d_ff), "w_down": (L, cfg.d_ff, d)}),
-    }
-    if cfg.qkv_bias:
-        layers.update(bq=(L, cfg.n_heads * hd), bk=(L, cfg.n_kv_heads * hd),
-                      bv=(L, cfg.n_kv_heads * hd))
-    return {"embed": (_pad_vocab(cfg.vocab_size), d),
-            "final_norm": {"scale": (d,)}, "layers": layers}
+    tree = {"embed": (_pad_vocab(cfg.vocab_size), cfg.d_model),
+            "final_norm": {"scale": (cfg.d_model,)}}
+    if cfg.family in ("ssm", "hybrid"):
+        tree["layers"] = _ssm_layers(cfg)
+    else:
+        tree["layers"] = _attn_block(cfg, (cfg.n_layers,))
+    if cfg.family == "hybrid":
+        tree["shared_attn"] = _attn_block(cfg, ())
+    return tree
 
 
 def _convert(tree, shapes, dtype, device, path=""):
@@ -82,8 +114,9 @@ def _convert(tree, shapes, dtype, device, path=""):
 
 def params_from_jax(tree_of_numpy: Dict, cfg: ArchConfig,
                     device=None) -> Dict:
-    """The JAX ``LM`` parameter tree of the dense or ssm family (stacked
-    ``layers``, ``embed``, ``final_norm``; leaves as numpy arrays) as the
+    """The JAX ``LM`` parameter tree of the dense, moe, ssm or hybrid
+    family (stacked ``layers``, ``embed``, ``final_norm``, the hybrid's
+    ``shared_attn``; leaves as numpy arrays) as the
     port's parameters on ``device`` (default CUDA), each leaf in the dtype
     the reference gives it.  Keys and shapes are checked against ``cfg``."""
     return _convert(tree_of_numpy, _expected_shapes(cfg), _DTYPES[cfg.dtype],

@@ -1,19 +1,24 @@
 """Model assembly: the decoder LM (counterpart of ``repro.models.model``).
 
 Families ported so far:
-  dense : L x [GQA attention + MLP]
-  ssm   : L x [Mamba-1]    (attention-free; falcon-mamba)
+  dense  : L x [GQA attention + MLP]
+  moe    : L x [GQA attention + MoE]   (deepseek-moe, mixtral)
+  ssm    : L x [Mamba-1]               (attention-free; falcon-mamba)
+  hybrid : L x [Mamba-2] + one *shared* attention+MLP block applied after
+           every ``shared_attn_every`` layers (zamba2)
 
 The JAX package stacks each layer's parameters along a leading axis and
 runs the stack with ``lax.scan``; the port keeps the same parameter tree
 (so ``models.convert.params_from_jax`` is a plain copy) and loops over the
-layers.  Decode is a single-token step against a cache (KV for dense,
-conv + state carries for ssm) that the port updates in place (the JAX
-function returns a new one); the returned ``DecodeCache`` shares the
-caller's storage.
+layers.  Decode is a single-token step against a cache (KV for the
+attention families, a ring of ``window`` slots with sliding-window
+attention; conv + state carries for ssm; both for hybrid, whose shared
+block keeps one KV cache per application) that the port updates in place
+(the JAX function returns a new one); the returned ``DecodeCache`` shares
+the caller's storage.
 
-The other families raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+The vlm and audio families raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -30,10 +35,12 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_rope, dense_init, embed_apply,
                                        embed_init, mlp_apply, mlp_init,
                                        rmsnorm, rmsnorm_init, unembed_apply)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.numerics import matmul
 
 #: families not ported yet -> the ROADMAP.md queue-1 item that ports them
-_LATER_FAMILIES = {"hybrid": 14, "moe": 10, "vlm": 13, "audio": 13}
+_LATER_FAMILIES = {"vlm": 13, "audio": 13}
+_ATTN_FAMILIES = ("dense", "moe")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
 
@@ -58,13 +65,19 @@ def _layer(tree: Dict, i: int) -> Dict:
             for k, v in tree.items()}
 
 
+def _emulates(policy) -> bool:
+    return policy is not None and getattr(policy, "emulate", False)
+
+
 # ---------------------------------------------------------------------------
-# Attention transformer block
+# Attention transformer block (dense / moe; the hybrid's shared block)
 # ---------------------------------------------------------------------------
-def attn_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, n: int):
-    """``n`` stacked blocks' parameters (leading axis = layer)."""
+def attn_block_init(gen: torch.Generator, cfg: ArchConfig, dtype,
+                    n: Optional[int]):
+    """``n`` stacked blocks' parameters (leading axis = layer), or one
+    block's with ``n=None``."""
     d, hd, dev = cfg.d_model, cfg.head_dim, gen.device
-    lead = (n,)
+    lead = () if n is None else (n,)
     p = {
         "ln1": rmsnorm_init(d, dtype, dev, lead=lead),
         "wq": dense_init(gen, d, cfg.n_heads * hd, dtype, lead=lead),
@@ -72,13 +85,19 @@ def attn_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, n: int):
         "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, lead=lead),
         "wo": dense_init(gen, cfg.n_heads * hd, d, dtype, lead=lead),
         "ln2": rmsnorm_init(d, dtype, dev, lead=lead),
-        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype, lead=lead),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", cfg.n_heads * hd),
                             ("bk", cfg.n_kv_heads * hd),
                             ("bv", cfg.n_kv_heads * hd)):
-            p[name] = torch.zeros((n, width), dtype=dtype, device=dev)
+            p[name] = torch.zeros(lead + (width,), dtype=dtype, device=dev)
+    if cfg.family == "moe":
+        p["moe"] = moe_init(gen, d, n_experts=cfg.n_experts,
+                            moe_d_ff=cfg.moe_d_ff,
+                            n_shared=cfg.n_shared_experts, dtype=dtype,
+                            lead=lead)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype, lead=lead)
     return p
 
 
@@ -97,77 +116,112 @@ def _qkv(p, h, cfg: ArchConfig, positions, policy):
     return q, k, v
 
 
+def _ffn(p, h2, cfg: ArchConfig, policy):
+    """The MLP, or for the moe family the MoE (which no policy reaches:
+    the JAX ``_ffn`` passes none to ``moe_apply``).  Returns (out, aux)."""
+    if cfg.family == "moe":
+        return moe_apply(p["moe"], h2, top_k=cfg.experts_per_token,
+                         capacity_factor=cfg.capacity_factor)
+    return mlp_apply(p["mlp"], h2, cfg.mlp_act, policy), {"aux_loss": 0.0}
+
+
 def _residual_ffn(p, x, attn, cfg: ArchConfig, policy):
-    """x + wo(attn), then + mlp(norm): the block's second half."""
+    """x + wo(attn), then + ffn(norm): the block's second half.  Returns
+    (out, aux)."""
     B, S = attn.shape[:2]
     x = x + matmul(attn.reshape(B, S, -1), p["wo"], policy)
     h2 = rmsnorm(p["ln2"], x)
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_act, policy)
+    ff, aux = _ffn(p, h2, cfg, policy)
+    return x + ff, aux
 
 
 def attn_block_apply(p, x, positions, cfg: ArchConfig, *, policy=None):
-    """Full-sequence block.  Returns (out, (k, v))."""
+    """Full-sequence block.  Returns (out, aux, (k, v))."""
     h = rmsnorm(p["ln1"], x)
     q, k, v = _qkv(p, h, cfg, positions, policy)
     attn = flash_attention_trainable(q, k, v, causal=True, window=cfg.window)
-    return _residual_ffn(p, x, attn, cfg, policy), (k, v)
+    out, aux = _residual_ffn(p, x, attn, cfg, policy)
+    return out, aux, (k, v)
 
 
 def attn_block_decode(p, x, k_cache, v_cache, cache_len, cfg: ArchConfig, *,
-                      policy=None, write_mask=None):
+                      ring: bool = False, policy=None, write_mask=None):
     """x: (B,1,d); caches (B,Smax,Hkv,D), written in place at each lane's
-    ``cache_len`` (B,) — except lanes where ``write_mask`` is False or the
-    position lies beyond the cache, whose cache bits stay as they were."""
+    ``cache_len`` (B,), or on a ring (sliding window) at ``cache_len %
+    Smax`` — except lanes where ``write_mask`` is False or (not a ring) the
+    position lies beyond the cache, whose cache bits stay as they were.  A
+    ring holds exactly the window, so it needs no window mask."""
     B = x.shape[0]
     Smax = k_cache.shape[1]
     h = rmsnorm(p["ln1"], x)
     q, k, v = _qkv(p, h, cfg, cache_len[:, None], policy)
     lanes = torch.arange(B, device=x.device)
-    keep = cache_len < Smax
+    if ring:
+        idx = cache_len % Smax
+        keep = torch.ones_like(cache_len, dtype=torch.bool)
+    else:
+        idx = cache_len.clamp(max=Smax - 1)
+        keep = cache_len < Smax
     if write_mask is not None:
         keep = keep & write_mask
-    idx = cache_len.clamp(max=Smax - 1)
     keep = keep[:, None, None]
     k_cache[lanes, idx] = torch.where(keep, to_cache(k[:, 0], k_cache.dtype),
                                       k_cache[lanes, idx])
     v_cache[lanes, idx] = torch.where(keep, to_cache(v[:, 0], v_cache.dtype),
                                       v_cache[lanes, idx])
     valid = torch.clamp(cache_len + 1, max=Smax)
-    attn = decode_attention(q, k_cache, v_cache, valid, window=cfg.window)
-    return _residual_ffn(p, x, attn, cfg, policy)
+    attn = decode_attention(q, k_cache, v_cache, valid,
+                            window=0 if ring else cfg.window)
+    return _residual_ffn(p, x, attn, cfg, policy)[0]
 
 
 def _chunk_attn_block(p, x, k_cache, v_cache, offsets, chunk_lens, positions,
-                      cfg: ArchConfig, *, policy=None):
+                      cfg: ArchConfig, *, ring: bool, policy=None):
     """Chunk-resumable attention block over gathered per-lane cache lanes.
 
     x: (M,Cb,d); k_cache/v_cache: (M,smax,Hkv,D); offsets/chunk_lens: (M,)
     tokens already prefilled / valid tokens in this chunk; positions:
-    (M,Cb).  Attends against the history + the fresh chunk and returns
-    (out, new_k, new_v) with only the valid chunk K/V written."""
+    (M,Cb).  Attends against the history (on a ring: the last ``smax``
+    positions, gathered in position order) + the fresh chunk, and returns
+    (out, new_k, new_v) with only the valid chunk K/V written.  On a ring a
+    chunk longer than ``smax`` writes only its last ``smax`` columns, the
+    positions the ring keeps."""
     M, Cb, _ = x.shape
     smax = k_cache.shape[1]
     dev = x.device
     h = rmsnorm(p["ln1"], x)
     q, k, v = _qkv(p, h, cfg, positions, policy)
-    valid_new = torch.arange(Cb, device=dev)[None, :] < chunk_lens[:, None]
-    hist_pos = torch.arange(smax, device=dev).expand(M, smax)
-    hist_valid = hist_pos < offsets[:, None]
-    k_all = torch.cat([k_cache.to(k.dtype), k], dim=1)
-    v_all = torch.cat([v_cache.to(v.dtype), v], dim=1)
+    col = torch.arange(Cb, device=dev)[None, :]
+    valid_new = col < chunk_lens[:, None]
+    i = torch.arange(smax, device=dev)[None, :]
+    if ring:
+        hist_pos = offsets[:, None] - smax + i
+        slot = (hist_pos % smax)[..., None, None]
+        k_hist = torch.take_along_dim(k_cache, slot, dim=1)
+        v_hist = torch.take_along_dim(v_cache, slot, dim=1)
+        hist_valid = hist_pos >= 0
+        write_pos = positions % smax
+        written = valid_new & (col >= chunk_lens[:, None] - smax)
+    else:
+        hist_pos = i.expand(M, smax)
+        k_hist, v_hist = k_cache, v_cache
+        hist_valid = hist_pos < offsets[:, None]
+        write_pos, written = positions, valid_new
+    k_all = torch.cat([k_hist.to(k.dtype), k], dim=1)
+    v_all = torch.cat([v_hist.to(v.dtype), v], dim=1)
     k_pos = torch.cat([hist_pos, positions], dim=1)
     k_valid = torch.cat([hist_valid, valid_new], dim=1)
     attn = chunk_attention(q, k_all, v_all, positions, k_pos, k_valid,
                            window=cfg.window)
-    # pad columns go to a scratch slot past the cache and are dropped
-    write_idx = torch.where(valid_new, positions, smax).clamp(max=smax)
+    # columns not written go to a scratch slot past the cache and are dropped
+    write_idx = torch.where(written, write_pos, smax).clamp(max=smax)
     lanes = torch.arange(M, device=dev)[:, None]
     new_k, new_v = [], []
     for cache, fresh, out in ((k_cache, k, new_k), (v_cache, v, new_v)):
         ext = torch.cat([cache, cache[:, :1]], dim=1)
         ext[lanes, write_idx] = to_cache(fresh, cache.dtype)
         out.append(ext[:, :smax])
-    return (_residual_ffn(p, x, attn, cfg, policy), new_k[0], new_v[0])
+    return (_residual_ffn(p, x, attn, cfg, policy)[0], new_k[0], new_v[0])
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +267,10 @@ def ssm_block_apply(p, x, cfg: ArchConfig, state=None,
 @dataclasses.dataclass
 class DecodeCache:
     """Decode state: ``data`` {"k", "v"} of shape (L, B, Smax, Hkv, D)
-    (dense) or {"conv" (L, B, K-1, C), "h" (L, B, d_in, N)} (ssm), and
-    ``length``, a 0-d (single sequence) or (B,) per-slot int64 tensor."""
+    (dense, moe; Smax = min(max_len, window) with a window), {"conv" (L, B,
+    K-1, C), "h" (L, B, ...)} (ssm), or both (hybrid, with k/v of shape
+    (n_shared_applications, B, max_len, Hkv, D)), and ``length``, a 0-d
+    (single sequence) or (B,) per-slot int64 tensor."""
 
     data: Dict
     length: torch.Tensor
@@ -228,16 +284,18 @@ class LM:
             raise NotImplementedError(
                 f"the {cfg.family} family is not ported yet: ROADMAP.md "
                 f"queue 1 item {_LATER_FAMILIES[cfg.family]}")
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in _ATTN_FAMILIES + ("ssm", "hybrid"):
             raise ValueError(cfg.family)
-        if cfg.window:
-            raise NotImplementedError(
-                "sliding-window (ring) KV caches arrive with mixtral: "
-                "ROADMAP.md queue 1 item 10")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.vocab_padded = _pad_vocab(cfg.vocab_size)
         self.dtype = _DTYPES[cfg.dtype]
+
+    @property
+    def ring(self) -> bool:
+        """The KV cache is a ring of ``window`` slots (sliding-window
+        attention); the hybrid's shared-block caches never are."""
+        return bool(self.cfg.window) and self.cfg.family != "hybrid"
 
     # ------------------------------------------------------------- init ----
     def init(self, seed: int) -> Dict:
@@ -246,68 +304,133 @@ class LM:
         cfg, dtype = self.cfg, self.dtype
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        block_init = ssm_block_init if cfg.family == "ssm" \
-            else attn_block_init
-        return {
+        block_init = attn_block_init if cfg.family in _ATTN_FAMILIES \
+            else ssm_block_init
+        params = {
             "embed": embed_init(gen, self.vocab_padded, cfg.d_model, dtype),
             "final_norm": rmsnorm_init(cfg.d_model, dtype, self.device),
             "layers": block_init(gen, cfg, dtype, cfg.n_layers),
         }
+        if cfg.family == "hybrid":
+            params["shared_attn"] = attn_block_init(gen, cfg, dtype, None)
+        return params
+
+    # ------------------------------------------------------- segments ------
+    def _segments(self):
+        """[(start, end, apply_shared_after), ...]: the hybrid's Mamba-2
+        runs of ``shared_attn_every`` layers, each followed by the shared
+        block, and a shorter trailing run without it; one run otherwise."""
+        cfg = self.cfg
+        if cfg.family != "hybrid":
+            return [(0, cfg.n_layers, False)]
+        every = cfg.shared_attn_every
+        segs, start = [], 0
+        while start < cfg.n_layers:
+            end = min(start + every, cfg.n_layers)
+            segs.append((start, end, end - start == every))
+            start = end
+        return segs
+
+    @property
+    def n_shared_applications(self) -> int:
+        return sum(1 for _, _, s in self._segments() if s)
 
     # ------------------------------------------------------- forward -------
     def apply(self, params, tokens, *, policy=None, collect_kv: bool = False,
               collect_states: bool = False, logits_last_only: bool = False,
-              last_index=None):
-        """Full-sequence forward. Returns (logits, aux) or, with
-        ``collect_kv`` (dense), (logits, aux, (k, v)) with k, v of shape
-        (L, B, S, Hkv, D) in the cache dtype, or with ``collect_states``
-        (ssm), (logits, aux, (conv, h)): each layer's decode state after the
-        sequence, stacked.  The JAX package's prefill runs the stack a
-        second time for the states (``_prefill_ssm_states``); the port takes
-        them from this pass, whose numbers are the same.
+              last_index=None, moe_stats: bool = False):
+        """Full-sequence forward. Returns (logits, aux), with
+        ``collect_kv`` (attention families, hybrid) then (k, v) of shape
+        (L or n_shared_applications, B, S, Hkv, D) in the cache dtype (None
+        for a hybrid without a shared application), and with
+        ``collect_states`` (ssm, hybrid) then (conv, h): each layer's
+        decode state after the sequence, stacked.  ``aux`` is the MoE
+        load-balance loss summed over the layers (0.0 without experts);
+        with ``moe_stats`` (moe family) it is instead a dict of that sum
+        (``aux_loss``) and each layer's dropped share (``dropped_frac``,
+        (L,) float32).
 
         logits_last_only: unembed only the final position; last_index: (B,)
         per-sample position to unembed instead (bucket-padded prefill).
-        Under a policy, only the projections and the unembed are emulated:
-        the ssm family's only policy-routed matmul is the unembed."""
-        cfg = self.cfg
+        Under a policy, only the attention projections, the dense MLPs and
+        the unembed are emulated: the ssm family's only policy-routed
+        matmul is the unembed, the moe family's experts and router take
+        none, nor do the hybrid's Mamba-2 blocks."""
         x = embed_apply(params["embed"], tokens)
-        B, S, _ = x.shape
-        collected = None
-        if cfg.family == "ssm":
-            x, states = self._ssm_stack(params["layers"], x,
-                                        collect=collect_states)
-            if collect_states:
-                collected = states
-        else:
-            positions = torch.arange(S, device=x.device)[None, :]
-            ks, vs = [], []
-            for i in range(cfg.n_layers):
-                x, (k, v) = attn_block_apply(_layer(params["layers"], i), x,
-                                             positions, cfg, policy=policy)
-                if collect_kv:
-                    ks.append(to_cache(k, self.cache_dtype))
-                    vs.append(to_cache(v, self.cache_dtype))
-            if collect_kv:
-                collected = (torch.stack(ks), torch.stack(vs))
+        B = x.shape[0]
+        x, aux, kv, states = self._stack(params, x, policy, collect_kv,
+                                         collect_states)
+        if not moe_stats:
+            aux = aux["aux_loss"]
         x = rmsnorm(params["final_norm"], x)
         if last_index is not None:
             x = x[torch.arange(B, device=x.device), last_index][:, None]
         elif logits_last_only:
             x = x[:, -1:]
         logits = unembed_apply(params["embed"], x, policy)
-        if collected is not None:
-            return logits, 0.0, collected
-        return logits, 0.0
+        return (logits, aux) + ((kv,) if collect_kv else ()) \
+            + ((states,) if collect_states else ())
 
-    def _ssm_stack(self, layers, x, states=None, collect: bool = False):
-        """The ssm layers over x.  ``states``: per-layer (conv, h) stacked
-        on a leading layer axis to resume from (None: zeros).  Returns
-        (x, (conv, h) stacked) when collecting or resuming, else (x, None).
-        """
+    def _stack(self, params, x, policy, collect_kv: bool,
+               collect_states: bool):
+        """The layers over the embedded x.  Returns (x, aux, kv or None,
+        states or None); aux: the summed ``aux_loss`` and, for the moe
+        family, each layer's ``dropped_frac`` stacked."""
+        cfg = self.cfg
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        aux, ks, vs, states = 0.0, [], [], None
+        dropped = []
+        if cfg.family in _ATTN_FAMILIES:
+            for i in range(cfg.n_layers):
+                x, a, (k, v) = attn_block_apply(
+                    _layer(params["layers"], i), x, positions, cfg,
+                    policy=policy)
+                aux = aux + a["aux_loss"]
+                if "dropped_frac" in a:
+                    dropped.append(a["dropped_frac"])
+                if collect_kv:
+                    ks.append(k)
+                    vs.append(v)
+        elif cfg.family == "ssm":
+            x, states = self._ssm_stack(params["layers"], x,
+                                        collect=collect_states)
+        else:  # hybrid
+            convs, hs = [], []
+            for s, e, shared in self._segments():
+                x, st = self._ssm_stack(params["layers"], x,
+                                        collect=collect_states, start=s,
+                                        end=e)
+                if collect_states:
+                    convs.append(st[0])
+                    hs.append(st[1])
+                if shared:
+                    x, _, (k, v) = attn_block_apply(
+                        params["shared_attn"], x, positions, cfg,
+                        policy=policy)
+                    if collect_kv:
+                        ks.append(k)
+                        vs.append(v)
+            if collect_states:
+                states = (torch.cat(convs), torch.cat(hs))
+        kv = None
+        if ks:
+            kv = (torch.stack([to_cache(k, self.cache_dtype) for k in ks]),
+                  torch.stack([to_cache(v, self.cache_dtype) for v in vs]))
+        aux = {"aux_loss": aux}
+        if dropped:
+            aux["dropped_frac"] = torch.stack(dropped)
+        return x, aux, kv, states
+
+    def _ssm_stack(self, layers, x, states=None, collect: bool = False,
+                   start: int = 0, end: Optional[int] = None):
+        """Layers ``start`` to ``end`` (default all) of the ssm stack over
+        x.  ``states``: per-layer (conv, h) stacked on a leading axis over
+        every layer, to resume from (None: zeros).  Returns (x, (conv, h)
+        of those layers stacked) when collecting or resuming, else (x,
+        None)."""
         convs, hs = [], []
         keep = collect or states is not None
-        for i in range(self.cfg.n_layers):
+        for i in range(start, self.cfg.n_layers if end is None else end):
             st = None if states is None else (states[0][i], states[1][i])
             out = ssm_block_apply(_layer(layers, i), x, self.cfg, state=st,
                                   return_state=keep)
@@ -319,6 +442,17 @@ class LM:
                 x = out
         return x, ((torch.stack(convs), torch.stack(hs)) if keep else None)
 
+    def _decode_states(self, params, tokens, policy, states):
+        """The hybrid's decode states after a prefill, the JAX package's
+        way: from a second forward whose shared blocks run with no policy
+        (``_prefill_ssm_states``).  Under an emulating policy they differ
+        from the first pass's after the first shared application, so that
+        pass runs here; otherwise the first pass's are the same numbers."""
+        if self.cfg.family != "hybrid" or not _emulates(policy):
+            return states
+        x = embed_apply(params["embed"], tokens)
+        return self._stack(params, x, None, False, True)[3]
+
     # -------------------------------------------------------- caches -------
     @property
     def cache_dtype(self):
@@ -326,18 +460,25 @@ class LM:
 
     def init_cache(self, batch: int, max_len: int) -> DecodeCache:
         """Zeroed decode state for ``batch`` lanes: KV of ``max_len``
-        positions (dense) or conv and h carries (ssm, whose state does not
-        grow with the length)."""
-        cfg, L, dev = self.cfg, self.cfg.n_layers, self.device
-        if cfg.family == "ssm":
+        positions (a ring of min(max_len, window) slots with a window) and,
+        for ssm and hybrid, conv and h carries (which do not grow with the
+        length)."""
+        cfg, dev = self.cfg, self.device
+        data = {}
+        if cfg.family in ("ssm", "hybrid"):
             (conv_s, conv_t), (h_s, h_t) = ssm.mamba_state_shapes(cfg, batch)
-            data = {"conv": torch.zeros((L,) + conv_s, dtype=conv_t,
-                                        device=dev),
-                    "h": torch.zeros((L,) + h_s, dtype=h_t, device=dev)}
-        else:
-            shp = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-            data = {name: torch.zeros(shp, dtype=self.cache_dtype,
-                                      device=dev) for name in ("k", "v")}
+            L = cfg.n_layers
+            data["conv"] = torch.zeros((L,) + conv_s, dtype=conv_t,
+                                       device=dev)
+            data["h"] = torch.zeros((L,) + h_s, dtype=h_t, device=dev)
+        if cfg.family != "ssm":
+            n = cfg.n_layers if cfg.family in _ATTN_FAMILIES \
+                else self.n_shared_applications
+            smax = min(max_len, cfg.window) if self.ring else max_len
+            shp = (n, batch, smax, cfg.n_kv_heads, cfg.head_dim)
+            for name in ("k", "v"):
+                data[name] = torch.zeros(shp, dtype=self.cache_dtype,
+                                         device=dev)
         return DecodeCache(data, torch.zeros((), dtype=torch.int64,
                                              device=dev))
 
@@ -346,74 +487,109 @@ class LM:
             length, dtype=torch.int64, device=self.device))
 
     # -------------------------------------------------------- decode -------
+    def _ssm_decode(self, lp, x, data, i, write_mask):
+        """One ssm layer's decode step; layer ``i``'s carries are written in
+        place (masked-off lanes keep theirs)."""
+        x, new = ssm_block_apply(lp, x, self.cfg, return_state=True,
+                                 state=(data["conv"][i], data["h"][i]))
+        for old, fresh in zip((data["conv"][i], data["h"][i]), new):
+            if write_mask is not None:
+                keep = write_mask.reshape((x.shape[0],) + (1,) *
+                                          (fresh.dim() - 1))
+                fresh = torch.where(keep, fresh, old)
+            old.copy_(fresh)
+        return x
+
     def decode_step(self, params, cache: DecodeCache, tokens, *, policy=None,
                     write_mask=None):
         """tokens: (B,1) -> (logits (B,1,V), cache advanced by one).
 
         The cache is written in place; ``write_mask`` (B,) bool leaves the
         cache bits of masked-off lanes untouched."""
+        cfg = self.cfg
         x = embed_apply(params["embed"], tokens)
         B = x.shape[0]
         clen = cache.length
         lens = clen.expand(B) if clen.dim() == 0 else clen
         data = cache.data
-        for i in range(self.cfg.n_layers):
-            lp = _layer(params["layers"], i)
-            if self.cfg.family == "ssm":
-                x, new = ssm_block_apply(lp, x, self.cfg, return_state=True,
-                                         state=(data["conv"][i],
-                                                data["h"][i]))
-                for old, fresh in zip((data["conv"][i], data["h"][i]), new):
-                    if write_mask is not None:
-                        keep = write_mask.reshape((B,) + (1,) *
-                                                  (fresh.dim() - 1))
-                        fresh = torch.where(keep, fresh, old)
-                    old.copy_(fresh)
-                continue
-            x = attn_block_decode(lp, x, data["k"][i], data["v"][i], lens,
-                                  self.cfg, policy=policy,
-                                  write_mask=write_mask)
+        if cfg.family in _ATTN_FAMILIES:
+            for i in range(cfg.n_layers):
+                x = attn_block_decode(_layer(params["layers"], i), x,
+                                      data["k"][i], data["v"][i], lens, cfg,
+                                      ring=self.ring, policy=policy,
+                                      write_mask=write_mask)
+        else:
+            app = 0
+            for s, e, shared in self._segments():
+                for i in range(s, e):
+                    x = self._ssm_decode(_layer(params["layers"], i), x,
+                                         data, i, write_mask)
+                if shared:
+                    x = attn_block_decode(params["shared_attn"], x,
+                                          data["k"][app], data["v"][app],
+                                          lens, cfg, ring=False,
+                                          policy=policy,
+                                          write_mask=write_mask)
+                    app += 1
         x = rmsnorm(params["final_norm"], x)
         logits = unembed_apply(params["embed"], x, policy)
         return logits, DecodeCache(cache.data, clen + 1)
 
     # -------------------------------------------------------- prefill ------
+    def _collect(self, params, tokens, policy, **kw):
+        """One forward that returns what a prefill keeps: (logits, kv or
+        None, states or None)."""
+        fam = self.cfg.family
+        out = self.apply(params, tokens, policy=policy,
+                         collect_kv=fam != "ssm",
+                         collect_states=fam in ("ssm", "hybrid"), **kw)
+        kv = out[2] if fam != "ssm" else None
+        states = out[-1] if fam in ("ssm", "hybrid") else None
+        return out[0], kv, self._decode_states(params, tokens, policy,
+                                               states)
+
     def prefill(self, params, tokens, *, max_len: Optional[int] = None,
                 policy=None):
         """Run the full prompt, build a decode cache. Returns
-        (last_logits (B,V), cache)."""
-        ssm_family = self.cfg.family == "ssm"
-        logits, _, collected = self.apply(
-            params, tokens, policy=policy, collect_kv=not ssm_family,
-            collect_states=ssm_family, logits_last_only=True)
+        (last_logits (B,V), cache).  A ring cache shorter than the prompt
+        keeps the prompt's tail, ring-aligned: position p at slot p %
+        smax, where decode writes next."""
+        logits, kv, states = self._collect(params, tokens, policy,
+                                           logits_last_only=True)
         B, S = tokens.shape
-        if ssm_family:  # the state does not grow with max_len
-            cache = DecodeCache(dict(zip(("conv", "h"), collected)), None)
-        else:
-            cache = self.init_cache(B, max_len or S)
-            cache.data["k"][:, :, :S] = collected[0]
-            cache.data["v"][:, :, :S] = collected[1]
+        if self.cfg.family == "ssm":  # the state does not grow with max_len
+            cache = DecodeCache(dict(zip(("conv", "h"), states)), None)
+            return logits[:, -1], self.cache_at_length(cache, S)
+        cache = self.init_cache(B, max_len or S)
+        data = cache.data
+        if kv is not None:
+            smax = data["k"].shape[2]
+            for name, t in zip(("k", "v"), kv):
+                if smax >= S:
+                    data[name][:, :, :S] = t
+                else:
+                    data[name].copy_(torch.roll(t[:, :, S - smax:], S % smax,
+                                                dims=2))
+        if states is not None:
+            data["conv"].copy_(states[0])
+            data["h"].copy_(states[1])
         return logits[:, -1], self.cache_at_length(cache, S)
 
     def prefill_batched(self, params, tokens, true_lens, *, policy=None):
         """Bucket-padded batched prefill for the serving engine.
 
         tokens: (M, Lb) right-padded to one bucket length; true_lens: (M,).
-        Returns ``(last_logits (M, V), (k, v), None)`` with k, v of shape
-        (L, M, Lb, Hkv, D), or for the ssm family ``(last_logits, None,
-        (conv, h))``.  Right-padding is exact for causal attention: a pad
-        never enters a valid position's context.  SSM state carries run
-        through pads, so that family must be called with exact lengths (all
-        ``true_lens == Lb``)."""
+        Returns ``(last_logits (M, V), kv or None, states or None)``: k, v
+        of shape (L or n_shared_applications, M, Lb, Hkv, D) and the ssm
+        and hybrid families' (conv, h).  Right-padding is exact for causal
+        attention: a pad never enters a valid position's context.  SSM
+        state carries run through pads, so those families must be called
+        with exact lengths (all ``true_lens == Lb``)."""
         true_lens = torch.as_tensor(true_lens, dtype=torch.int64,
                                     device=self.device)
-        ssm_family = self.cfg.family == "ssm"
-        logits, _, collected = self.apply(
-            params, tokens, policy=policy, collect_kv=not ssm_family,
-            collect_states=ssm_family, last_index=true_lens - 1)
-        if ssm_family:
-            return logits[:, 0], None, collected
-        return logits[:, 0], collected, None
+        logits, kv, states = self._collect(params, tokens, policy,
+                                           last_index=true_lens - 1)
+        return logits[:, 0], kv, states
 
     def prefill_chunk(self, params, cache: DecodeCache, tokens, offsets,
                       chunk_lens, slot_ids, *, policy=None):
@@ -423,17 +599,18 @@ class LM:
         tokens: (M, Cb) right-padded chunk tokens; offsets: (M,) tokens
         already prefilled per lane; chunk_lens: (M,) valid tokens; slot_ids:
         (M,) cache lanes.  Returns ``(last_logits (M, V), cache)`` with the
-        chunk's KV written at the offsets and the lane lengths advanced to
-        ``offsets + chunk_lens``.  History is read back from the cache, so
-        the cache dtype must equal the compute dtype.
+        chunk's KV written at the offsets (ring-aligned on a ring) and the
+        lane lengths advanced to ``offsets + chunk_lens``.  History is read
+        back from the cache, so the cache dtype must equal the compute
+        dtype.
 
-        The ssm family resumes each lane from its conv/h carries (a lane
-        with offset 0 starts from zeros, whatever the slot held) and writes
-        them back; its chunks must be exact length (``chunk_lens == Cb``:
-        the conv carry is the raw chunk tail), and the prefill equals the
-        monolithic one when every non-final boundary lands on a multiple of
-        ``cfg.ssm_scan_chunk``."""
-        dev = self.device
+        The ssm and hybrid families resume each lane from its conv/h
+        carries (a lane with offset 0 starts from zeros, whatever the slot
+        held) and write them back; their chunks must be exact length
+        (``chunk_lens == Cb``: the conv carry is the raw chunk tail), and
+        the prefill equals the monolithic one when every non-final boundary
+        lands on a multiple of ``cfg.ssm_scan_chunk``."""
+        cfg, dev = self.cfg, self.device
         x = embed_apply(params["embed"], tokens)
         M, Cb = tokens.shape
         offsets = torch.as_tensor(offsets, dtype=torch.int64, device=dev)
@@ -442,30 +619,63 @@ class LM:
         slot_ids = torch.as_tensor(slot_ids, dtype=torch.int64, device=dev)
         positions = offsets[:, None] + torch.arange(Cb, device=dev)[None, :]
         data = cache.data
-        if self.cfg.family == "ssm":
+
+        def attend(p, x, i, ring):
+            x, k2, v2 = _chunk_attn_block(
+                p, x, data["k"][i][slot_ids], data["v"][i][slot_ids],
+                offsets, chunk_lens, positions, cfg, ring=ring, policy=policy)
+            data["k"][i, slot_ids] = k2
+            data["v"][i, slot_ids] = v2
+            return x
+
+        if cfg.family in _ATTN_FAMILIES:
+            for i in range(cfg.n_layers):
+                x = attend(_layer(params["layers"], i), x, i, self.ring)
+        else:
             fresh = offsets == 0
             lanes = []
             for name in ("conv", "h"):
                 t = data[name][:, slot_ids]
                 lanes.append(t.masked_fill(
                     fresh.reshape((1, M) + (1,) * (t.dim() - 2)), 0))
-            x, (conv, h) = self._ssm_stack(params["layers"], x, states=lanes)
-            data["conv"][:, slot_ids] = conv
-            data["h"][:, slot_ids] = h
-        else:
-            for i in range(self.cfg.n_layers):
-                x, k2, v2 = _chunk_attn_block(
-                    _layer(params["layers"], i), x, data["k"][i][slot_ids],
-                    data["v"][i][slot_ids], offsets, chunk_lens, positions,
-                    self.cfg, policy=policy)
-                data["k"][i, slot_ids] = k2
-                data["v"][i, slot_ids] = v2
+            convs, hs, app = [], [], 0
+            for s, e, shared in self._segments():
+                x, (conv, h) = self._ssm_stack(params["layers"], x,
+                                               states=lanes, start=s, end=e)
+                convs.append(conv)
+                hs.append(h)
+                if shared:
+                    x = attend(params["shared_attn"], x, app, False)
+                    app += 1
+            data["conv"][:, slot_ids] = torch.cat(convs)
+            data["h"][:, slot_ids] = torch.cat(hs)
         length = cache.length.clone()
         length[slot_ids] = offsets + chunk_lens
         x = rmsnorm(params["final_norm"], x)
         x = x[torch.arange(M, device=dev), chunk_lens - 1][:, None]
         logits = unembed_apply(params["embed"], x, policy)
         return logits[:, 0], DecodeCache(data, length)
+
+    def prefill_chunked(self, params, tokens, chunk_size: int, *,
+                        max_len: Optional[int] = None, policy=None):
+        """The monolithic prefill built from ``prefill_chunk`` steps of
+        ``chunk_size`` tokens.  tokens: (B, S) exact (no pads).  Returns
+        ``(last_logits (B, V), cache)`` with per-lane lengths, equal to
+        ``prefill``'s for any chunk size obeying the family's boundary
+        contract (see ``prefill_chunk``)."""
+        B, S = tokens.shape
+        base = self.init_cache(B, max_len or S)
+        cache = DecodeCache(base.data, torch.zeros(B, dtype=torch.int64,
+                                                   device=self.device))
+        slot_ids = torch.arange(B, device=self.device)
+        last = None
+        for off in range(0, S, chunk_size):
+            clen = min(chunk_size, S - off)
+            last, cache = self.prefill_chunk(
+                params, cache, tokens[:, off:off + clen],
+                torch.full((B,), off), torch.full((B,), clen), slot_ids,
+                policy=policy)
+        return last, cache
 
     def decode_scan(self, params, cache: DecodeCache, tok, active, budget,
                     n_steps: int, *, pad_id: int = 0, policy=None,
@@ -476,7 +686,8 @@ class LM:
         cache.length must be per-slot (B,); tok: (B, 1) next token per
         slot; active: (B,) bool gates which lanes sample/advance; budget:
         (B,) remaining tokens per slot.  Inactive lanes ride the batched
-        step but keep their cache bits, length, token and budget.  A lane
+        step but keep their cache bits (a ring write or an ssm state is not
+        masked by length), length, token and budget.  A lane
         deactivates when its budget hits zero or, with ``stop_tokens``,
         when it samples a stop token (which is still emitted).  Returns
         ``(cache, tok, active, budget, toks (n, B), emitted (n, B))``."""

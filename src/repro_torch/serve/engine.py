@@ -12,13 +12,15 @@ recycled.  Structure, as in the JAX engine:
     device tensors and the host syncs once per dispatch.
   * **Bucketed batched prefill** — prompt lengths are padded up to
     power-of-two buckets (exact for causal attention) and same-bucket
-    queued requests are admitted in one batched prefill.  The ssm family's
-    states integrate every prompt token, pads included, so it batches at
-    exact lengths instead.
+    queued requests are admitted in one batched prefill.  The ssm and
+    hybrid families' states integrate every prompt token, pads included,
+    so they batch at exact lengths instead.  A sliding-window (ring) cache
+    keeps a longer prompt's last ``window`` positions, ring-aligned, and
+    caps no length.
   * **Chunked prefill** (``prefill_chunk=N``) — prompts stream through
     their lanes N tokens per step, interleaved with decode dispatches.  For
-    the ssm family N is rounded up to ``cfg.ssm_scan_chunk`` (the scan's
-    carry points) and chunks stay exact length.
+    the ssm and hybrid families N is rounded up to ``cfg.ssm_scan_chunk``
+    (the scan's carry points) and chunks stay exact length.
   * **Stop tokens** — a lane freezes on the device the moment it samples
     one; the stop token is emitted, nothing after it.
   * **Deadlines** on an injected ``clock``: a request that expired before a
@@ -133,7 +135,7 @@ class BatchedServer:
                     "between chunks, so the cache dtype must equal the "
                     f"compute dtype (cache {model.cache_dtype} != compute "
                     f"{model.dtype})")
-            if model.cfg.family == "ssm":
+            if model.cfg.family in ("ssm", "hybrid"):
                 # the chunked prefill resumes exactly only at the scan's
                 # carry points: round the chunk up to them
                 sc = max(int(model.cfg.ssm_scan_chunk), 1)
@@ -167,12 +169,13 @@ class BatchedServer:
         self._contended_decode_tokens = 0
         dev = model.device
         # ssm states integrate every prompt token, so bucket pads would
-        # perturb them: that family batches at exact lengths
-        self._bucketed = self.cfg.family != "ssm"
+        # perturb them: the ssm and hybrid families batch at exact lengths
+        self._bucketed = self.cfg.family not in ("ssm", "hybrid")
         cache = model.init_cache(slots, max_len)
-        # a KV cache caps the per-slot length; ssm states do not grow
-        self._len_cap = cache.data["k"].shape[2] if "k" in cache.data \
-            else None
+        # a KV cache caps the per-slot length; a ring (sliding-window)
+        # cache wraps and ssm states do not grow, so neither caps it
+        self._len_cap = cache.data["k"].shape[2] \
+            if "k" in cache.data and not model.ring else None
         # device-resident slot state
         self.cache = DecodeCache(cache.data, torch.zeros(
             slots, dtype=torch.int64, device=dev))
@@ -436,7 +439,8 @@ class BatchedServer:
     def _bucket(self, n: int) -> int:
         if not self._bucketed:
             return n
-        return min(bucket_length(n, lo=self.min_bucket), self._len_cap)
+        b = bucket_length(n, lo=self.min_bucket)
+        return b if self._len_cap is None else min(b, self._len_cap)
 
     def _finish(self, req: Request):
         req.done = True
@@ -556,8 +560,20 @@ class BatchedServer:
         ids = torch.as_tensor(slot_ids, device=dev)
         data = self.cache.data
         if kv is not None:
-            data["k"][:, ids, :bucket] = kv[0]
-            data["v"][:, ids, :bucket] = kv[1]
+            smax = data["k"].shape[2]
+            if bucket <= smax:
+                data["k"][:, ids, :bucket] = kv[0]
+                data["v"][:, ids, :bucket] = kv[1]
+            else:  # only a ring is narrower than its bucket: keep the
+                # window tail, ring-aligned so position p sits at slot
+                # p % smax; a shorter prompt's clipped slots stay masked
+                # until decode overwrites them
+                j = torch.arange(smax, device=dev)
+                base = torch.from_numpy(true_lens).to(dev)[:, None] - smax
+                pos = (base + (j[None, :] - base) % smax).clamp(0, bucket - 1)
+                idx = pos[None, :, :, None, None]
+                data["k"][:, ids] = torch.take_along_dim(kv[0], idx, dim=2)
+                data["v"][:, ids] = torch.take_along_dim(kv[1], idx, dim=2)
         if states is not None:
             data["conv"][:, ids] = states[0]
             data["h"][:, ids] = states[1]
@@ -615,10 +631,10 @@ class BatchedServer:
     def _advance_prefills(self, now: float):
         """Advance every mid-prefill lane by one chunk, grouped by padded
         chunk width (the final partial chunk pads up to a pow2 bucket; ssm
-        chunks stay exact length, since the conv carry integrates raw
-        inputs).  A lane whose chunk completes its prompt is armed for
-        decode and its first token committed (one host sync, only on such
-        steps)."""
+        and hybrid chunks stay exact length, since the conv carry
+        integrates raw inputs).  A lane whose chunk completes its prompt is
+        armed for decode and its first token committed (one host sync, only
+        on such steps)."""
         C = self.prefill_chunk
         lanes = sorted(self._prefill_pos)
 

@@ -589,3 +589,95 @@ def test_softfloat_on_card_bitwise(card, fmt):
         got = emulated_dot(da.to(card), db.to(card), fmt=f, style=style)
         assert got.device.type == "cuda"
         _exact(got.cpu(), emulated_dot(da, db, fmt=f, style=style))
+
+
+# ------------------------------------------ the hybrid and MoE families
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) for k, v in tree.items()} \
+        if isinstance(tree, dict) else tree.to(dev)
+
+
+@pytest.mark.parametrize("cf", [1.25, 64.0])
+def test_moe_apply_on_card_is_stable_and_matches_cpu(card, cf):
+    """A deepseek-moe-shaped layer (64 routed experts, top-6, 2 shared) at
+    a narrow width, in bfloat16: two card runs bitwise equal; the picks,
+    keep mask, slots and tokens the CPU's; the output within 4 * 2**-8 *
+    max|out| of the CPU's (the experts' products sum in another order; each
+    output is a few rounded adds of those)."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(0)
+    p = moe.moe_init(gen, 256, n_experts=64, moe_d_ff=128, n_shared=2,
+                     dtype=torch.bfloat16)
+    x = torch.randn((4, 128, 256), generator=gen).to(torch.bfloat16)
+    kw = dict(top_k=6, capacity_factor=cf)
+    pc, xc = _tree_to(p, card), x.to(card)
+    got = moe.route(pc["router"], xc.reshape(-1, 256), **kw)
+    want = moe.route(p["router"], x.reshape(-1, 256), **kw)
+    for name in ("top_i", "keep", "slot", "tok"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    assert bool(got.keep.all()) == (cf == 64.0)
+    out1, aux = moe.moe_apply(pc, xc, **kw)
+    out2, _ = moe.moe_apply(pc, xc, **kw)
+    assert torch.equal(out1, out2)
+    ref, aux_cpu = moe.moe_apply(p, x, **kw)
+    assert float(aux["dropped_frac"]) == float(aux_cpu["dropped_frac"])
+    err = (out1.cpu().float() - ref.float()).abs().max()
+    assert err <= 4 * 2.0 ** -8 * ref.float().abs().max()
+
+
+def test_ring_decode_on_card_matches_cpu(card):
+    """The reduced mixtral (16-slot ring, float32): a 40-token prefill and
+    12 decode steps across the wrap on the card against the CPU, logits
+    and ring within rtol = atol = 1e-4 (float32; the products' summation
+    order differs)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(),
+                              dtype="float32")
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg, device=card)
+    params = cpu.init(seed=0)
+    params_gpu = _tree_to(params, card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 40)))
+    want, wc = cpu.prefill(params, toks, max_len=64)
+    got, gc_ = gpu.prefill(params_gpu, toks.to(card), max_len=64)
+    for _ in range(12):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        nxt = torch.argmax(want, dim=-1)[:, None]
+        want, wc = cpu.decode_step(params, wc, nxt)
+        got, gc_ = gpu.decode_step(params_gpu, gc_, nxt.to(card))
+        want, got = want[:, -1], got[:, -1]
+    assert wc.data["k"].shape[2] == 16
+    for name in ("k", "v"):
+        torch.testing.assert_close(gc_.data[name].cpu(), wc.data[name],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,per_fwd", [("zamba2-1.2b", 13),
+                                          ("deepseek-moe-16b", 9)])
+def test_emulated_families_on_card_match_cpu(card, arch, per_fwd):
+    """The reduced hybrid (5 layers, two shared applications: 6 * 2 + 1
+    K1 launches a forward) and MoE (2 layers: 4 * 2 + 1) under
+    EmulatedPolicy(bf16, fused): K1 on the card against the plain version
+    on the CPU, |delta| <= 4 * 2**-8 * max|logit|, for ``apply`` and for
+    the last logits of a prefill."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import LM
+    from repro_torch.models.numerics import EmulatedPolicy
+    kw = dict(n_layers=5) if arch == "zamba2-1.2b" else {}
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              **kw)
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg, device=card)
+    params = cpu.init(seed=0)
+    params_gpu = _tree_to(params, card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 24)))
+    pol = EmulatedPolicy("bf16", "fused")
+    want, _ = cpu.apply(params, toks, policy=pol)
+    before = fused_qmm.launches
+    got, _ = gpu.apply(params_gpu, toks.to(card), policy=pol)
+    assert fused_qmm.launches - before == per_fwd
+    assert (got.cpu() - want).abs().max() <= 4 * 2.0 ** -8 * want.abs().max()
+    want, _ = cpu.prefill(params, toks, policy=pol)
+    got, _ = gpu.prefill(params_gpu, toks.to(card), policy=pol)
+    assert (got.cpu() - want).abs().max() <= 4 * 2.0 ** -8 * want.abs().max()

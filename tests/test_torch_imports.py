@@ -62,7 +62,7 @@ def test_slice_modules_are_scanned():
                 "core/latency_sim.py", "core/dse.py", "core/body_bias.py",
                 "core/localsearch.py", "core/trace.py", "core/autotune.py",
                 "numerics/registry.py", "core/softfloat.py",
-                "core/chip.py", "numerics/accuracy.py"):
+                "core/chip.py", "numerics/accuracy.py", "models/moe.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -76,12 +76,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tbase.get_config("tinyllama-1.1b").reduced()
     ssm_cfg = tbase.get_config("falcon-mamba-7b").reduced()
+    hybrid_cfg = tbase.get_config("zamba2-1.2b").reduced()
+    moe_cfg = tbase.get_config("deepseek-moe-16b").reduced()
     a = np.ones((4, 8), np.float32)
     ab, c = np.ones((1, 64, 8, 4), np.float32), np.ones((1, 64, 4),
                                                          np.float32)
     spec = benchgen.KernelSpec("quantize", "bf16", (16, 128))
     calls = [lambda: LM(cfg),
              lambda: LM(ssm_cfg),
+             lambda: LM(hybrid_cfg),
+             lambda: LM(moe_cfg),
              lambda: emulated_matmul(a, a.T, fmt="bf16"),
              lambda: emulated_ssm_scan(ab, ab, c, fmt="bf16"),
              lambda: quantize_tensor(a, fmt="bf16"),

@@ -16,8 +16,12 @@ batching (its states integrate pads), the chunked-prefill size rounded up
 to ``cfg.ssm_scan_chunk``, and no prompt-length cap from a KV cache it does
 not have.  Its server streams are held against the port's
 ``greedy_decode`` and against the JAX engine's streams, by the same rule.
+So are the hybrid (zamba2, 5 layers), MoE (deepseek-moe) and ring
+(mixtral, 16-token window) families' ``reduced()`` servers, monolithic and
+chunked, against the JAX engine's streams.
 """
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -332,3 +336,52 @@ def test_ssm_server_matches_jax(ssm_pair, chunk):
         _, margins = _margins(tm, tp, p, n, len(p) + n)
         _assert_streams_agree(g.output, w.output, margins,
                               f"request {g.uid}")
+
+
+# ----------------------------------------- hybrid, MoE and ring families
+#: two prompts of 9 tokens (one exact-length batch for the hybrid), and 40
+#: tokens: longer than the reduced mixtral's 16-token window
+FAMILY_LENS, FAMILY_NEW = (9, 9, 40, 6, 21), (6, 4, 8, 1, 5)
+FAMILY_KW = {"zamba2-1.2b": dict(n_layers=5, ssm_scan_chunk=4),
+             "deepseek-moe-16b": {}, "mixtral-8x7b": {}}
+
+
+@functools.lru_cache(maxsize=None)
+def _family_pair(arch):
+    kw = dict(FAMILY_KW[arch], dtype="float32")
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), **kw)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    jm = JLM(jcfg)
+    jp = jm.init(jax.random.PRNGKey(6))
+    tm = LM(cfg, device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    return jm, jp, tm, tp
+
+
+@pytest.mark.parametrize("chunk", [None, 6], ids=["monolithic", "chunked"])
+@pytest.mark.parametrize("arch", sorted(FAMILY_KW))
+def test_family_server_matches_jax(arch, chunk):
+    """The hybrid, MoE and ring servers' streams against the JAX engine's
+    on exported weights.  The hybrid batches at exact lengths and rounds
+    a chunk of 6 up to its scan chunk (8, two carry points of 4); the
+    ring caps no prompt length and keeps the 40-token prompt's last 16
+    positions."""
+    jm, jp, tm, tp = _family_pair(arch)
+    prompts = _prompts(256, FAMILY_LENS, seed=14)
+    kw = dict(slots=2, max_len=48, dispatch_tokens=3, prefill_chunk=chunk)
+    want = _serve(jengine.BatchedServer(jm, jp, **kw), prompts, FAMILY_NEW,
+                  np.int32, jengine.Request)
+    server = BatchedServer(tm, tp, **kw)
+    hybrid = arch == "zamba2-1.2b"
+    assert server._len_cap == (None if tm.ring else 48)
+    assert [server._bucket(n) for n in FAMILY_LENS] == (
+        list(FAMILY_LENS) if hybrid
+        else [min(b, server._len_cap or b) for b in (16, 16, 64, 8, 32)])
+    if chunk:
+        assert server.prefill_chunk == (8 if hybrid else 6)
+    got = _serve(server, prompts, FAMILY_NEW)
+    for g, w, p, n in zip(got, want, prompts, FAMILY_NEW):
+        assert len(w.output) == n and g.done
+        _, margins = _margins(tm, tp, p, n, 48)
+        _assert_streams_agree(g.output, w.output, margins,
+                              f"{arch} request {g.uid}")

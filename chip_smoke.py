@@ -74,7 +74,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      prefill under the prefill unit's and one under the decode unit's
      routed numerics (bf16 fused, bf16 cascade_fwd), 155 K1 launches each,
      bitwise equal to ``EmulatedPolicy`` with that format and style;
-  3c. benchgen on the card: ``calibrate()`` measures the card's rates,
+  3c. telemetry on tinyllama-1.1b (the chip phase's die and fleets): the
+     chip phase's 12 requests served under the recording ``Tracer`` and
+     untraced, in turns; the trace's ``check_integrity()`` empty, one root
+     span a request, each request's span energy equal to its
+     ``energy_j`` and the tracer's total to ``energy_report``'s (rel
+     1e-9), the same tokens traced and untraced, the JSONL round trip
+     equal to the tracer and the Chrome trace parsed; then the loaded
+     trace's ``phases_from_trace`` tuned by ``tune_chip`` on the card and
+     on the CPU, picking the same units; tracing's cost in served
+     tokens/s printed;
+  3d. fault-tolerant serving of tinyllama-1.1b in float32 (the bf16
+     weights widened) by ``ResilientServer`` over the same die, on a fake
+     clock with synthetic dispatch times and a seeded ``FaultInjector``,
+     8 sp requests (bulk ones on sp_fma, deadline-bound ones on sp_cma):
+     sp_fma killed mid-run (no request lost, the drained ones resumed on
+     sp_cma, each resumed stream bitwise the uninterrupted run's or parting
+     first at a near tie of ``LM.apply``, every token within 4 * 2**-8 of
+     it); a transient corruption retried with backoff, no corrupt token
+     committed; a throttle detected and sp_fma's J/FLOP raised; every
+     fleet killed, all 8 requests parked, a probe bringing the fleets
+     back and the requests finished; ``resilience_report()`` and each
+     recovery's latency in sim and wall seconds printed; then the
+     per-token ``ReferenceServer`` serving phase 3's 8 requests in bf16,
+     every token held to 4 * 2**-8 of ``LM.apply``;
+  3e. benchgen on the card: ``calibrate()`` measures the card's rates,
      then, counters set to 0 just before and read just after,
      ``validate`` of the default specs and two full-width flash specs
      against those rates, in which K1, K2, K4 and K5 must each launch;
@@ -115,7 +139,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      cache): served at ``capacity_factor = n_experts`` (nothing drops) in
      bf16 (timed, not held); the same requests at the config's 1.25 with
      each prefill forward's dropped share (``LM.apply(moe_stats=True)`` on
-     the server's own batches) and the tokens that differ printed; two
+     the server's own batches, read off the server's recorded ``Tracer``)
+     and the tokens that differ printed; two
      identical prefills bitwise equal; 113 K1 launches per emulated
      forward; layer 0's MoE on the largest served prefill's input against
      the CPU (picks, keep mask and slots identical, output within
@@ -132,6 +157,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ``prefill`` (layer 0's ring bitwise in bf16; in float32 the last
      logits and every layer's ring within 1e-4 of their max |value|),
      17 K1 launches per emulated forward;
+  4d. the vlm and audio families at full width and depth, each model
+     freed before the next: internvl2-1b (24 layers, d_model 896, 14/2
+     heads, vocab 151655) with 256 prefix embeddings from a
+     ``torch.Generator`` before 64 tokens, prefilled and decoded 8 steps
+     (each token within 4 * 2**-8 of ``LM.apply``'s top logit on the same
+     embeddings and tokens; the cache length counts the prefix), phase
+     3's 8 requests served as a token LM under phase 3's gates, one
+     4x128 prefill with the prefix and 4 decode steps under
+     EmulatedPolicy(bf16, fused) with 169 K1 launches per forward, and a
+     decode profile; musicgen-large (48 layers, d_model 2048, 32 MHA
+     heads, float8_e4m3fn KV cache) with 2 x 512 frame embeddings
+     prefilled and decoded 8 steps in bf16 (timed, each token's gap to
+     ``LM.apply`` printed, not gated), layer 0's fp8 cache bitwise the
+     CPU's ``to_cache`` of the same K/V, 289 K1 launches per emulated
+     forward (frames in place of the tokens), a decode profile, and the
+     same frames in float32 with a float32 cache, every token within
+     4 * 2**-8 of ``LM.apply``;
   5. the paper's DSE core at full size on the card (it launches none of
      K1-K6, so it has no launch window): the chip phase's ``calibrate``
      (6000 float32 Adam steps) within rtol 1e-3 of the same fit on the CPU, its Table I
@@ -1159,6 +1201,24 @@ def stream_vs_apply(model, params, prompt, stream):
             pos[0])
 
 
+def hold_to_apply(model, params, reqs, prompts, what):
+    """Every token of every request within NEAR_TIE of ``LM.apply``'s top
+    logit on its own prefix; returns (worst shortfall over the limit,
+    tokens at the argmax) and each request's margins."""
+    worst, exact, margins = 0.0, 0, {}
+    for r, prompt in zip(reqs, prompts):
+        shortfall, scale, margin, _ = stream_vs_apply(model, params, prompt,
+                                                      r.output)
+        over = shortfall / (NEAR_TIE * scale)
+        check(int((over > 1).sum()) == 0, f"{what} request {r.uid}: a token "
+              f"falls short of LM.apply's top logit by more than {NEAR_TIE} "
+              "of max |logit|")
+        worst = max(worst, float(over.max()))
+        exact += int((shortfall == 0).sum())
+        margins[r.uid] = margin / scale
+    return worst, exact, margins
+
+
 def emulated_full_width(model, params, rng):
     """prefill 4x128 + decode_scan 16 under each emulating policy, twice:
     155 K1 launches per forward, finite logits, identical streams."""
@@ -1242,6 +1302,36 @@ def user_calls_full_width(model, params):
           "pallas_equals_fused": True, "shape": list(x.shape) + [w.shape[1]]})
 
 
+def chip_server(model, params, tech, **kw):
+    """The chip phase's policy over the fabricated SP+DP die and its
+    ``BatchedServer`` (``kw``: more server options, such as a tracer)."""
+    from repro_torch.core import chip
+    from repro_torch.serve import BatchedServer
+    c = CHIP
+    policy = chip.ChipPolicy(chip.fabricated_chip(None, tech), tech)
+    return policy, BatchedServer(model, params, slots=c["slots"],
+                                 max_len=c["max_len"], chip_policy=policy,
+                                 deadline_routing=True,
+                                 accuracy_fleets=c["accuracy_fleets"], **kw)
+
+
+def chip_traffic(cfg, rng):
+    """The chip phase's 12 requests, one per (precision, deadline, accuracy
+    class): (combos, prompt lengths, prompts, requests)."""
+    from repro_torch.serve import Request
+    c = CHIP
+    combos = [(p, d, a) for p in c["precisions"] for d in c["deadlines"]
+              for a in c["slos"]]
+    lens = rng.integers(c["prompt_lo"], c["prompt_hi"] + 1, len(combos))
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    far = time.monotonic() + 1e6  # a deadline class, never an expiry
+    reqs = [Request(uid=i, prompt=pr, max_new_tokens=c["new_tokens"],
+                    deadline_s=far if d else None, precision=p,
+                    accuracy_slo=a)
+            for i, (pr, (p, d, a)) in enumerate(zip(prompts, combos))]
+    return combos, lens, prompts, reqs
+
+
 def chip_full_width(model, params, rng, tech):
     """The chip facade on tinyllama-1.1b at full width: ``BatchedServer``
     with a ``ChipPolicy`` over the fabricated SP+DP die routes requests of
@@ -1254,22 +1344,10 @@ def chip_full_width(model, params, rng, tech):
     from repro_torch.core import chip
     from repro_torch.kernels.fused import fused_qmm
     from repro_torch.models.numerics import EmulatedPolicy
-    from repro_torch.serve import BatchedServer, Request, RequestRejected
+    from repro_torch.serve import Request, RequestRejected
     cfg, dev, c = model.cfg, model.device, CHIP
-    policy = chip.ChipPolicy(chip.fabricated_chip(None, tech), tech)
-    server = BatchedServer(model, params, slots=c["slots"],
-                           max_len=c["max_len"], chip_policy=policy,
-                           deadline_routing=True,
-                           accuracy_fleets=c["accuracy_fleets"])
-    combos = [(p, d, a) for p in c["precisions"] for d in c["deadlines"]
-              for a in c["slos"]]
-    lens = rng.integers(c["prompt_lo"], c["prompt_hi"] + 1, len(combos))
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
-    far = time.monotonic() + 1e6  # a deadline class, never an expiry
-    reqs = [Request(uid=i, prompt=pr, max_new_tokens=c["new_tokens"],
-                    deadline_s=far if d else None, precision=p,
-                    accuracy_slo=a)
-            for i, (pr, (p, d, a)) in enumerate(zip(prompts, combos))]
+    policy, server = chip_server(model, params, tech)
+    combos, lens, prompts, reqs = chip_traffic(cfg, rng)
     bad = Request(uid=len(reqs), prompt=prompts[0], max_new_tokens=2,
                   accuracy_slo=c["unmeetable"])
     try:
@@ -1328,16 +1406,7 @@ def chip_full_width(model, params, rng, tech):
     check(abs(report["total_j"] / sum(per_unit.values()) - 1) <= ENERGY_REL,
           "energy_report total != the requests' sum")
     # every served token against LM.apply on its own prefix
-    worst, exact = 0.0, 0
-    for r, prompt in zip(reqs, prompts):
-        shortfall, scale, _, _ = stream_vs_apply(model, params, prompt,
-                                                 r.output)
-        over = shortfall / (NEAR_TIE * scale)
-        check(int((over > 1).sum()) == 0, f"chip request {r.uid}: a token "
-              f"falls short of LM.apply's top logit by more than "
-              f"{NEAR_TIE} of max |logit|")
-        worst = max(worst, float(over.max()))
-        exact += int((shortfall == 0).sum())
+    worst, exact, _ = hold_to_apply(model, params, reqs, prompts, "chip")
     # the routed units' numerics through K1
     B, S = EMU["batch"], EMU["prompt"]
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
@@ -1383,6 +1452,363 @@ def chip_full_width(model, params, rng, tech):
           "rejected": "accuracy_slo_unmeetable",
           "tokens_checked": n_tok, "tokens_at_apply_argmax": exact,
           "worst_shortfall_over_limit": worst, "numerics": numerics})
+
+
+# ---------------------------------------------------------------------------
+# phases 3d-3e: telemetry and fault-tolerant serving on tinyllama-1.1b
+# ---------------------------------------------------------------------------
+# each traced and untraced serve of the chip phase's requests runs this
+# many times, alternating, for tracing's cost in served tokens/s
+TRACE_RUNS = 2
+# the resilience phase's fake clock: one tick per scheduler step, and the
+# synthetic dispatch time the health monitor reads
+TICK = 0.05
+RESILIENCE = dict(slots=8, max_len=256, requests=8, prompt_lo=16,
+                  prompt_hi=128, new_tokens=32, dispatch_tokens=8)
+
+
+class FakeClock:
+    """The serving clock of the resilience phase: sim seconds, advanced
+    by the caller."""
+
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def trace_full_width(model, params, tech, dev):
+    """The chip phase's 12 requests served under the recording ``Tracer``
+    and untraced, in turns: the trace's integrity, one root span a
+    request, span energy equal to each request's and to ``energy_report``
+    (rel ENERGY_REL), the same tokens traced and untraced, the JSONL round
+    trip equal to the tracer and the Chrome trace parsed; then the trace's
+    measured phases (``phases_from_trace``) tuned by ``tune_chip`` on the
+    card and on the CPU, with identical picks."""
+    import dataclasses
+    import tempfile
+    from repro_torch.core import chip, energy_model, latency_sim
+    from repro_torch.telemetry import (Tracer, load_jsonl, phases_from_trace,
+                                       summarize_trace, write_chrome_trace,
+                                       write_jsonl)
+    cfg = model.cfg
+
+    def serve(tracer):
+        _, server = chip_server(model, params, tech, tracer=tracer)
+        _, _, _, reqs = chip_traffic(cfg, np.random.default_rng(SEED + 2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            server.submit(r)
+        server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(all(r.done and not r.expired for r in reqs),
+              "the traced phase did not finish every request")
+        return server, reqs, sum(len(r.output) for r in reqs) / wall
+
+    serve(None)  # warm-up: the first run pays for the allocator's growth
+    rates = {"untraced": [], "traced": []}
+    for _ in range(TRACE_RUNS):
+        plain, plain_reqs, rate = serve(None)
+        rates["untraced"].append(rate)
+        tracer = Tracer()
+        server, reqs, rate = serve(tracer)
+        rates["traced"].append(rate)
+    problems = tracer.check_integrity()
+    check(problems == [], f"trace integrity: {problems[:3]}")
+    roots = [s for s in tracer.spans if s.is_root]
+    check(sorted(s.uid for s in roots) == [r.uid for r in reqs],
+          "not one root span per request")
+    worst = 0.0
+    for r, q in zip(reqs, plain_reqs):
+        check(r.output == q.output, f"request {r.uid}: tracing changed its "
+              "tokens")
+        rel = abs(tracer.request_energy_j(r.uid) / r.energy_j - 1)
+        worst = max(worst, rel)
+        check(rel <= ENERGY_REL, f"request {r.uid}: span energy "
+              f"{tracer.request_energy_j(r.uid)} J, request {r.energy_j} J")
+    total = server.energy_report()["total_j"]
+    rel = abs(tracer.total_energy_j() / total - 1)
+    check(rel <= ENERGY_REL, f"span energy {tracer.total_energy_j()} J, "
+          f"energy_report {total} J")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_jsonl(tracer, str(Path(tmp) / "trace.jsonl"))
+        back = load_jsonl(path)
+        chrome = json.loads(Path(write_chrome_trace(
+            tracer, str(Path(tmp) / "trace.json"))).read_text())
+        jsonl_bytes = Path(path).stat().st_size
+    check([dataclasses.asdict(x) for x in back.spans] ==
+          [dataclasses.asdict(x) for x in tracer.spans]
+          and back.metrics == tracer.metrics
+          and back.system_events == tracer.system_events,
+          "the JSONL round trip differs from the tracer")
+    slices = [e for e in chrome["traceEvents"] if e["ph"] == "X"]
+    check(len(slices) == len(tracer.spans), "Chrome trace: "
+          f"{len(slices)} slices for {len(tracer.spans)} spans")
+    # the measured phases tuned on the card and on the CPU
+    phases = phases_from_trace(back, name=cfg.name)
+    check([p.name for p in phases] == [f"{cfg.name}:prefill",
+                                       f"{cfg.name}:decode"],
+          f"phases {[p.name for p in phases]}")
+
+    def picks(res):
+        return [(u.name, u.design.name, u.vdd, u.vbb, u.count,
+                 u.fmt.name if u.fmt else None) for u in res.spec.units]
+
+    tuned, seconds = {}, {}
+    for where in (dev, "cpu"):
+        latency_sim.clear_penalty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tuned[str(where)] = chip.tune_chip(
+            phases, params=tech, cache=energy_model.SweepExecutableCache(),
+            device=where)
+        seconds[str(where)] = time.perf_counter() - t0
+    on_card, on_cpu = tuned[str(dev)], tuned["cpu"]
+    check(picks(on_card) == picks(on_cpu), f"tune_chip on the trace: card "
+          f"{picks(on_card)} != CPU {picks(on_cpu)}")
+    summary = summarize_trace(back)
+    untraced, traced = (float(np.median(rates[k]))
+                        for k in ("untraced", "traced"))
+    emit({"phase": "trace", "arch": cfg.name, "requests": len(reqs),
+          "spans": len(tracer.spans), "events": sum(
+              len(x.events) for x in tracer.spans),
+          "metric_samples": sum(map(len, tracer.metrics.values())),
+          "jsonl_bytes": jsonl_bytes, "chrome_events": len(
+              chrome["traceEvents"]),
+          "integrity": "clean", "tokens_equal_untraced": True,
+          "energy_worst_rel": worst, "energy_total_rel": rel,
+          "tokens_per_s": rates, "tokens_per_s_untraced": untraced,
+          "tokens_per_s_traced": traced,
+          "tracing_cost_share": 1 - traced / untraced,
+          "summary": dataclasses.asdict(summary),
+          "phases": [dict(name=p.name, flops_fraction=p.flops_fraction,
+                          activity=p.profile.activity) for p in phases],
+          "tune_chip_units": picks(on_card),
+          "tune_chip_seconds": seconds})
+
+
+def resilient_server(model, params, tech, events=(), **res_kw):
+    """A ``ResilientServer`` over the chip phase's die (one fleet per decode
+    unit, deadline routing) on a fake clock with synthetic dispatch times
+    and a ``FaultInjector`` armed with ``events`` (seeded)."""
+    from repro_torch.core import chip
+    from repro_torch.faults import FaultInjector
+    from repro_torch.serve import ResilienceConfig, ResilientServer
+    s = RESILIENCE
+    clock = FakeClock()
+    policy = chip.ChipPolicy(chip.fabricated_chip(None, tech), tech)
+    res_kw.setdefault("probe_interval_s", None)
+    server = ResilientServer(
+        model, params, slots=s["slots"], max_len=s["max_len"],
+        chip_policy=policy, deadline_routing=True,
+        dispatch_tokens=s["dispatch_tokens"], clock=clock,
+        injector=FaultInjector(events, seed=SEED),
+        resilience=ResilienceConfig(synthetic_dispatch_s=TICK, **res_kw))
+    return server, clock
+
+
+def resilience_traffic(cfg, prompts):
+    """sp requests, half with a deadline class (a deadline no run reaches):
+    bulk ones route to sp_fma, deadline-bound ones to sp_cma."""
+    from repro_torch.serve import Request
+    return [Request(uid=i, prompt=p, max_new_tokens=RESILIENCE["new_tokens"],
+                    precision="sp", deadline_s=1e9 if i % 2 else None)
+            for i, p in enumerate(prompts)]
+
+
+def drive_resilient(server, clock, reqs, max_steps=400, walls=None):
+    """Submit ``reqs``, then step one tick at a time until idle (or for
+    ``max_steps`` ticks); returns ``walls`` with the wall seconds at each
+    tick added (sim time -> wall time)."""
+    for r in reqs:
+        server.submit(r)
+    walls = {clock.t: time.perf_counter()} if walls is None else walls
+    for _ in range(max_steps):
+        clock.t += TICK
+        server.step(server.dispatch_tokens)
+        torch.cuda.synchronize()
+        walls[clock.t] = time.perf_counter()
+        if server.idle():
+            break
+    return walls
+
+
+def recovery_walls(report, walls):
+    """Each drain's recovery latency in sim seconds (ticks) and in wall
+    seconds on the card."""
+    out = []
+    for f in report["fault_log"]:
+        if not f["requests_drained"]:
+            continue
+        det, rec = f["detected_s"], f["recovered_s"]
+        out.append(dict(unit=f["unit"], kind=f["kind"],
+                        drained=f["requests_drained"],
+                        sim_s=None if rec is None else rec - det,
+                        wall_s=None if rec is None else
+                        walls.get(rec, np.nan) - walls.get(det, np.nan)))
+    return out
+
+
+def resilience_full_width(cfg, params, tech, dev):
+    """Fault-tolerant serving of tinyllama-1.1b at full width, in float32
+    (the bf16 weights widened, exactly): a fleet killed mid-run (no request
+    lost; the drained ones resume on the other sp fleet, each resumed
+    stream compared with an uninterrupted run of the same server: bitwise,
+    or parting first at a near tie of ``LM.apply``; every token within
+    NEAR_TIE of ``LM.apply``); transient corruption retried with backoff
+    (no corrupt token committed); a throttle detected and repriced; every
+    fleet killed, the requests parked and brought back by a probe.  Then
+    ``ReferenceServer`` serves the serve phase's 8 requests on the bf16
+    weights, held to NEAR_TIE."""
+    import dataclasses
+    from repro_torch.core.chip import UnitHealth
+    from repro_torch.faults import FaultEvent, FaultInjector, FaultKind
+    from repro_torch.models import LM
+    from repro_torch.serve import ReferenceServer, Request
+    s = RESILIENCE
+    model = LM(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    wide = tree_map(lambda t: t.float(), params)
+    rng = np.random.default_rng(SEED + 4)
+    lens = rng.integers(s["prompt_lo"], s["prompt_hi"] + 1, s["requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    out = {}
+
+    def run(events=(), **kw):
+        server, clock = resilient_server(model, wide, tech, events, **kw)
+        reqs = resilience_traffic(cfg, prompts)
+        t0 = time.perf_counter()
+        walls = drive_resilient(server, clock, reqs)
+        wall = time.perf_counter() - t0
+        check(all(r.done and not r.expired and not r.rejected and
+                  len(r.output) == s["new_tokens"] for r in reqs),
+              "requests lost or cut: "
+              f"{[(r.uid, len(r.output), r.done) for r in reqs]}")
+        bad = [r.uid for r in reqs
+               if FaultInjector.CORRUPT_TOKEN in r.output]
+        check(not bad, f"a corrupt token was committed to {bad}")
+        return server, reqs, walls, sum(len(r.output) for r in reqs) / wall
+
+    # the uninterrupted run (twice: the first warms the float32 model up),
+    # then sp_fma killed at its third tick
+    run()
+    base, base_reqs, _, base_rate = run()
+    routed = [r.routed_unit for r in base_reqs]
+    check(sorted(set(routed)) == ["sp_cma", "sp_fma"], f"routes {routed}")
+    kill = FaultEvent(at_s=3 * TICK, unit="sp_fma", kind=FaultKind.KILL)
+    server, reqs, walls, rate = run((kill,))
+    rep = server.resilience_report()
+    check(rep["health"]["sp_fma"]["status"] == UnitHealth.DEAD,
+          "the killed fleet is not dead")
+    moved = [r for r in reqs if r.requeues]
+    check(moved and all(r.routed_unit == "sp_cma" for r in moved),
+          f"drained requests resumed on {[r.routed_unit for r in moved]}")
+    worst, exact, margins = hold_to_apply(model, wide, reqs, prompts,
+                                          "resumed")
+    resumed = {}
+    for r, b in zip(reqs, base_reqs):
+        split = next((i for i, (x, y) in enumerate(zip(r.output, b.output))
+                      if x != y), len(b.output))
+        gap = None if split == len(b.output) else float(margins[r.uid][split])
+        check(gap is None or gap <= NEAR_TIE, f"request {r.uid}: the "
+              f"resumed stream parts from the uninterrupted one at token "
+              f"{split}, where LM.apply's top two logits are {gap} of max "
+              f"|logit| apart (a near tie is within {NEAR_TIE})")
+        if r.requeues:
+            resumed[r.uid] = dict(bitwise=split == len(b.output),
+                                  parting=split, gap=gap,
+                                  requeues=r.requeues)
+    out["kill"] = dict(report=rep, recovery=recovery_walls(rep, walls),
+                       resumed=resumed, tokens_per_s=rate,
+                       uninterrupted_tokens_per_s=base_rate,
+                       worst_shortfall_over_limit=worst,
+                       tokens_at_apply_argmax=exact)
+
+    # transient corruption on sp_fma: retried on the same fleet
+    corrupt = FaultEvent(at_s=3 * TICK, unit="sp_fma",
+                         kind=FaultKind.CORRUPT, duration_s=3 * TICK,
+                         magnitude=1.0)
+    server, reqs, walls, rate = run((corrupt,), backoff_base_s=2 * TICK,
+                                    probe_interval_s=1.0)
+    rep = server.resilience_report()
+    check(sum(rep["corrupt_dispatches"].values()) >= 1 and
+          server.wasted_energy_j > 0, "the corruption went unseen")
+    check(rep["health"]["sp_fma"]["in_service"], "a transient corruption "
+          "took sp_fma out of service")
+    hold_to_apply(model, wide, reqs, prompts, "corrupted")
+    out["corrupt"] = dict(report=rep, recovery=recovery_walls(rep, walls),
+                          wasted_energy_j=server.wasted_energy_j,
+                          tokens_per_s=rate)
+
+    # a throttle on sp_fma: detected from dispatch times, repriced
+    throttle = FaultEvent(at_s=2 * TICK, unit="sp_fma",
+                          kind=FaultKind.THROTTLE, magnitude=0.5)
+    server, reqs, walls, rate = run((throttle,))
+    pol = server.chip_policy
+    unit = pol.spec.unit("sp_fma")
+    rep = server.resilience_report()
+    health = rep["health"]["sp_fma"]
+    check(health["status"] == UnitHealth.THROTTLED, "the throttle went "
+          "undetected")
+    j_per_flop = pol.unit_energy_j(unit, 1.0)
+    j_healthy = unit.energy_j(1.0)
+    check(j_per_flop > j_healthy, f"throttled sp_fma costs {j_per_flop} "
+          f"J/FLOP, healthy {j_healthy}")
+    out["throttle"] = dict(report=rep, j_per_flop=j_per_flop,
+                           j_per_flop_healthy=j_healthy, tokens_per_s=rate)
+
+    # every fleet killed: the requests park, a probe brings them back
+    kills = tuple(FaultEvent(at_s=2 * TICK, unit=u, kind=FaultKind.KILL,
+                             duration_s=4 * TICK)
+                  for u in ("sp_fma", "sp_cma", "dp_fma", "dp_cma"))
+    server, clock = resilient_server(model, wide, tech, kills,
+                                     probe_interval_s=6 * TICK)
+    reqs = resilience_traffic(cfg, prompts)
+    # up to the first probe, 6 ticks after the kills: every fleet dies
+    # within these, and nothing is in service to take the requests
+    walls = drive_resilient(server, clock, reqs, max_steps=7)
+    parked = len(server._parked)
+    check(parked == len(reqs), f"{parked} of {len(reqs)} requests parked")
+    walls = drive_resilient(server, clock, [], walls=walls)
+    check(all(r.done and len(r.output) == s["new_tokens"] for r in reqs),
+          "parked requests did not finish")
+    hold_to_apply(model, wide, reqs, prompts, "parked")
+    rep = server.resilience_report()
+    out["kill_all"] = dict(report=rep, parked=parked,
+                           recovery=recovery_walls(rep, walls))
+    del model, wide
+    release()
+
+    # the per-token ReferenceServer on the bf16 weights
+    ref_model = LM(cfg, device=dev)
+    srng = np.random.default_rng(SEED)
+    sl = srng.integers(SERVE["prompt_lo"], SERVE["prompt_hi"] + 1,
+                       SERVE["requests"])
+    sprompts = [srng.integers(0, cfg.vocab_size, n) for n in sl]
+    server = ReferenceServer(ref_model, params, slots=SERVE["slots"],
+                             max_len=SERVE["max_len"])
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE["new_tokens"])
+            for i, p in enumerate(sprompts)]
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.run()
+    wall = time.perf_counter() - t0
+    check(len(done) == len(reqs) and all(
+        len(r.output) == SERVE["new_tokens"] for r in reqs),
+        "ReferenceServer did not finish every request")
+    worst, exact, _ = hold_to_apply(ref_model, params, reqs, sprompts,
+                                    "ReferenceServer")
+    out["reference_server"] = dict(
+        tokens_per_s=sum(len(r.output) for r in reqs) / wall,
+        worst_shortfall_over_limit=worst, tokens_at_apply_argmax=exact,
+        tokens_checked=sum(len(r.output) for r in reqs))
+    emit({"phase": "resilience", "arch": cfg.name, "dtype": "float32",
+          "slots": s["slots"], "requests": len(prompts),
+          "new_tokens": s["new_tokens"], "tick_s": TICK, **out})
 
 
 def serve_f32(cfg, params, dev, **kw):
@@ -1992,11 +2418,13 @@ def release():
     torch.cuda.empty_cache()
 
 
-def emulated_forwards(model, params, rng, per_fwd, steps=4):
+def emulated_forwards(model, params, rng, per_fwd, steps=4, embeds=False):
     """One EMU-shaped prefill and ``steps`` decode steps under
     EmulatedPolicy(bf16, fused): every forward launches K1 ``per_fwd``
     times (the attention projections, the dense MLPs and the unembed; no
-    Mamba projection, expert or router), and the logits are finite."""
+    Mamba projection, expert or router), and the logits are finite.  With
+    ``embeds`` the prefill takes the family's embedding inputs (``vlm``:
+    the prefix before the tokens; ``audio``: frames in place of them)."""
     from repro_torch.kernels.fused import fused_qmm
     from repro_torch.models.numerics import EmulatedPolicy
     cfg, dev = model.cfg, model.device
@@ -2004,11 +2432,16 @@ def emulated_forwards(model, params, rng, per_fwd, steps=4):
     B, S = EMU["batch"], EMU["prompt"]
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                            device=dev)
+    kw = {}
+    if embeds:
+        toks, kw = embed_inputs(model, params, B, S, SEED + 7)
+        if cfg.family == "vlm":
+            S += cfg.n_prefix_tokens
     c0 = fused_qmm.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     last, cache = model.prefill(params, toks, max_len=S + steps + 1,
-                                policy=pol)
+                                policy=pol, **kw)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     got = fused_qmm.launches - c0
@@ -2029,9 +2462,10 @@ def emulated_forwards(model, params, rng, per_fwd, steps=4):
     got = fused_qmm.launches - c1
     check(got == steps * per_fwd, f"{cfg.name} emulated decode: {got} K1 "
           f"launches, expected {steps * per_fwd}")
-    native, _ = model.prefill(params, toks, max_len=S + 1)
+    native, _ = model.prefill(params, toks, max_len=S + 1, **kw)
     emit({"phase": "emulated", "arch": cfg.name, "policy": "bf16/fused",
-          "batch": B, "prompt": S, "decode_steps": steps,
+          "batch": B, "prompt": S, "inputs": sorted(kw) or ["tokens"],
+          "decode_steps": steps,
           "k1_launches_per_forward": per_fwd, "prefill_s": t_prefill,
           "decode_s": t_decode, "decode_tokens_per_s": B * steps / t_decode,
           "rel_gap_to_native_bf16": float((last - native).abs().max()
@@ -2094,26 +2528,19 @@ def hybrid_path(dev, drive, rng):
     profile_decode(model, params, rng)
 
 
-def prefill_log():
-    """A tracer for ``BatchedServer(tracer=...)`` that keeps each prefill
-    event (its time, bucket and request, in the order of the batch's rows)
-    and ignores every other hook."""
-    from repro_torch.telemetry.tracer import Event, NullTracer
-
-    class PrefillLog(NullTracer):
-        enabled = True
-
-        def __init__(self):
-            self.prefills = []
-
-        def event(self, uid, type, t, **attrs):
-            if type == Event.PREFILL:
-                self.prefills.append((t, attrs["bucket"], uid))
-
-        def charge(self, *args, **kw):
-            return None
-
-    return PrefillLog()
+def prefill_batches(tracer):
+    """Each monolithic prefill the server ran, from its recorded trace:
+    {(time, bucket): the requests' uids in the order of the batch's rows}.
+    The engine opens each row's attempt span, and records its PREFILL event
+    there, in row order."""
+    from repro_torch.telemetry import Event
+    batches = {}
+    for span in tracer.spans:
+        for etype, t, attrs in span.events:
+            if etype == Event.PREFILL:
+                batches.setdefault((t, attrs["bucket"]), []).append(
+                    span.uid)
+    return batches
 
 
 def moe_layer0_input(model, params, toks):
@@ -2140,18 +2567,20 @@ def serve_with_drops(model, params, nodrop):
     differ from the no-drop run, as numbers (which entries drop depends on
     every token the forward carries, pads included).  Each prefill's
     shares are ``LM.apply(moe_stats=True)`` on the server's own batch,
-    rebuilt from its trace (bitwise the server's forward: the MoE is
-    deterministic, see ``moe_determinism``).  A decode step carries
-    ``slots`` tokens, within the capacity's floor, so none can drop.
+    rebuilt from the server's recorded ``Tracer`` (bitwise the server's
+    forward: the MoE is deterministic, see ``moe_determinism``).  A decode
+    step carries ``slots`` tokens, within the capacity's floor, so none
+    can drop.
     Returns the input of layer 0's MoE in the prefill with the most
     tokens."""
     from repro_torch.models import moe
     from repro_torch.models.model import _layer
     from repro_torch.serve import BatchedServer, Request
+    from repro_torch.telemetry import Tracer
     cfg, dev, s = model.cfg, model.device, SERVE
-    log = prefill_log()
+    tracer = Tracer()
     server = BatchedServer(model, params, slots=s["slots"],
-                           max_len=s["max_len"], tracer=log)
+                           max_len=s["max_len"], tracer=tracer)
     reqs = [Request(uid=i, prompt=p, max_new_tokens=s["new_tokens"])
             for i, p in enumerate(nodrop["prompts"])]
     for r in reqs:
@@ -2162,9 +2591,9 @@ def serve_with_drops(model, params, nodrop):
     check(moe.capacity(s["slots"], cfg.experts_per_token, cfg.n_experts,
                        cfg.capacity_factor) >= s["slots"],
           "a decode step could drop")
-    batches = {}
-    for t, bucket, uid in log.prefills:
-        batches.setdefault((t, bucket), []).append(uid)
+    check(tracer.check_integrity() == [], "the MoE server's trace is not "
+          "clean")
+    batches = prefill_batches(tracer)
     shares, sizes, biggest = [], [], None
     for (_, bucket), uids in batches.items():
         toks = np.full((len(uids), bucket), server.pad_id, np.int64)
@@ -2410,6 +2839,221 @@ def window_path(dev, drive, rng):
           lambda: window_f32(cfg, params, dev),
           lambda: emulated_forwards(model, params, rng, per_fwd))
     profile_decode(model, params, rng)
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the vlm and audio families at full width and depth
+# ---------------------------------------------------------------------------
+VLM_ARCH = "internvl2-1b"
+AUDIO_ARCH = "musicgen-large"
+# the embedding-input checks: prompt tokens after the prefix (vlm), frames
+# (audio), and decode steps after the prefill
+VLM_EMBEDS = dict(batch=2, prompt=64, steps=8)
+AUDIO_EMBEDS = dict(batch=2, frames=512, steps=8)
+
+
+def embed_inputs(model, params, batch, length, seed):
+    """The family's embedding input drawn from a ``torch.Generator`` at the
+    token table's scale: (tokens or None, apply/prefill kwargs).  vlm:
+    ``n_prefix_tokens`` patch embeddings in front of ``length`` tokens;
+    audio: ``length`` frame embeddings."""
+    cfg, dev = model.cfg, model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    scale = float(params["embed"].float().std())
+    if cfg.family == "vlm":
+        toks = torch.randint(0, cfg.vocab_size, (batch, length),
+                             generator=gen, device=dev)
+        emb = torch.randn((batch, cfg.n_prefix_tokens, cfg.d_model),
+                          generator=gen, device=dev) * scale
+        return toks, {"prefix_embeds": emb.to(model.dtype)}
+    emb = torch.randn((batch, length, cfg.d_model), generator=gen,
+                      device=dev) * scale
+    return None, {"frame_embeds": emb.to(model.dtype)}
+
+
+def embeds_decode(model, params, toks, kw, steps, max_len):
+    """``prefill`` of the embedding inputs and ``steps`` greedy
+    ``decode_step``s: (the stream (B, steps + 1), the logits that picked
+    it (B, steps + 1, V), the cache, seconds of the prefill and of the
+    decode steps)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, toks, max_len=max_len, **kw)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    rows = [last]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = model.decode_step(
+            params, cache, torch.argmax(rows[-1], dim=-1)[:, None])
+        rows.append(logits[:, -1])
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    rows = torch.stack(rows, 1).float()
+    return rows.argmax(-1), rows, cache, t_prefill, t_decode
+
+
+def embeds_vs_apply(model, params, toks, kw, stream):
+    """``LM.apply`` on the same embedding inputs and tokens: for each
+    position of ``stream`` (B, T), how far its token's logit falls short
+    of the top one, max |logit| there, both (B, T) float32, and the logits
+    (B, T, V).  A generated token enters as its table row: for audio the
+    frames and the rows go in as one ``frame_embeds``."""
+    fed = stream[:, :-1]
+    n_new = stream.shape[1]
+    if model.cfg.family == "audio":
+        frames = torch.cat([kw["frame_embeds"],
+                            params["embed"][fed].to(model.dtype)], dim=1)
+        logits, _ = model.apply(params, frame_embeds=frames)
+    else:
+        logits, _ = model.apply(params, torch.cat([toks, fed], dim=1),
+                                prefix_embeds=kw["prefix_embeds"])
+    pos = logits[:, -n_new:].float()
+    top = pos.max(-1).values
+    shortfall = top - pos.gather(-1, stream[..., None])[..., 0]
+    return shortfall, pos.abs().max(-1).values, pos
+
+
+def embeds_check(model, params, spec, seed, gate=True):
+    """``embeds_decode`` on the family's embedding inputs, each token held
+    to NEAR_TIE of ``LM.apply``'s top logit (printed only with ``gate``
+    False); returns the record and the inputs."""
+    B = spec["batch"]
+    length = spec.get("prompt", spec.get("frames"))
+    toks, kw = embed_inputs(model, params, B, length, seed)
+    S = length + (model.cfg.n_prefix_tokens
+                  if model.cfg.family == "vlm" else 0)
+    stream, rows, cache, t_prefill, t_decode = embeds_decode(
+        model, params, toks, kw, spec["steps"], S + spec["steps"] + 1)
+    check(int(cache.length) == S + spec["steps"], "the cache length does "
+          "not count the prefix")
+    shortfall, scale, pos = embeds_vs_apply(model, params, toks, kw, stream)
+    share = (shortfall / scale).flatten()
+    # how far the prefill and decode path's logits lie from LM.apply's
+    gap = ((rows - pos).abs().max(-1).values / scale).flatten()
+    if gate:
+        bad = int((share > NEAR_TIE).sum())
+        check(bad == 0, f"{model.cfg.name}: {bad} tokens fall short of "
+              f"LM.apply's top logit by more than {NEAR_TIE} of max |logit| "
+              f"(worst {float(share.max())})")
+    rec = {"batch": B, "prompt": length, "positions": S,
+           "decode_steps": spec["steps"], "prefill_s": t_prefill,
+           "decode_s": t_decode, "decode_tokens_per_s":
+           B * spec["steps"] / t_decode,
+           "shortfall_share_of_max_logit": share.tolist(),
+           "median_shortfall_share": float(share.median()),
+           "decode_vs_apply_rel_logit_gap": gap.tolist(),
+           "median_decode_vs_apply_gap": float(gap.median()),
+           "tokens_at_apply_argmax": int((shortfall == 0).sum()),
+           "gated": gate, "limit": NEAR_TIE if gate else None}
+    return rec, (toks, kw)
+
+
+def vlm_path(dev, drive, rng):
+    """internvl2-1b at full width and depth: 256 prefix embeddings before
+    64 tokens, prefilled and decoded 8 steps (each token within NEAR_TIE of
+    ``LM.apply`` on the same embeddings and tokens), the serve phase's 8
+    requests served as a token LM under the same gate, one emulated 4x128
+    prefill with the prefix and 4 decode steps (169 K1 launches a forward:
+    seven projections a layer and the unembed), and a profile of one
+    decode step."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(VLM_ARCH)
+    model, params = init_model(cfg, dev)
+    per_fwd = 7 * cfg.n_layers + 1
+    rec = {}
+
+    def check_embeds():
+        rec.update(embeds_check(model, params, VLM_EMBEDS, SEED + 5)[0])
+        emit({"phase": "vlm_audio", "arch": cfg.name, "dtype": cfg.dtype,
+              "input": "prefix_embeds", **rec})
+
+    drive(VLM_ARCH, ("fused_qmm",), check_embeds,
+          lambda: serve_full_width(model, params,
+                                   np.random.default_rng(SEED + 1)),
+          lambda: emulated_forwards(model, params, rng, per_fwd,
+                                    embeds=True))
+    profile_decode(model, params, rng)
+
+
+def fp8_cache_vs_cpu(model, params, kw):
+    """Layer 0's float8 cache after a prefill of the frames, against the
+    CPU's ``to_cache`` of the same K/V (the card's layer-0 projections, as
+    ``attn_block_apply`` computes them): bitwise."""
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.model import _layer, _qkv, to_cache
+    cfg = model.cfg
+    frames = kw["frame_embeds"]
+    _, cache = model.prefill(params, None, frame_embeds=frames)
+    p = _layer(params["layers"], 0)
+    x = frames.to(model.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    _, k, v = _qkv(p, rmsnorm(p["ln1"], x), cfg, positions, None)
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        want = to_cache(t.cpu(), torch.float8_e4m3fn).view(torch.uint8)
+        got = cache.data[name][0].cpu().view(torch.uint8)
+        out[name] = int((got != want).sum())
+        check(out[name] == 0, f"layer 0's fp8 {name} cache: {out[name]} "
+              "entries differ from the CPU's to_cache")
+    emit({"phase": "check", "what": "layer-0 float8_e4m3fn KV cache after "
+          "a prefill, card vs the CPU's to_cache", "arch": cfg.name,
+          "entries": int(k.numel()), "differing": out})
+
+
+def audio_f32(cfg, box, dev):
+    """musicgen-large's embedding-input check in float32 with a float32
+    cache (``kv_cache_dtype=""``; the bf16 weights widened leaf by leaf):
+    every token within NEAR_TIE of ``LM.apply``."""
+    import dataclasses
+    from repro_torch.models import LM
+    model = LM(dataclasses.replace(cfg, dtype="float32", kv_cache_dtype=""),
+               device=dev)
+    params = tree_map(lambda t: t.float(), box.pop())
+    release()
+    rec, _ = embeds_check(model, params, AUDIO_EMBEDS, SEED + 6)
+    emit({"phase": "vlm_audio", "arch": cfg.name, "dtype": "float32",
+          "kv_cache_dtype": "float32", "input": "frame_embeds", **rec})
+    del model, params
+    release()
+
+
+def audio_path(dev, drive, rng):
+    """musicgen-large at full width and depth with its float8_e4m3fn KV
+    cache: 2 x 512 frame embeddings prefilled and decoded 8 steps in bf16
+    (timed; each token's gap to ``LM.apply`` printed, not gated: the fp8
+    cache moves decode off ``LM.apply``), layer 0's fp8 cache bitwise the
+    CPU's ``to_cache``, one emulated 4x128 prefill of frames and 4 decode
+    steps (289 K1 launches a forward: six projections a layer and the
+    unembed), a profile of one decode step, and last the same frames in
+    float32 with a float32 cache, every token within NEAR_TIE of
+    ``LM.apply``."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(AUDIO_ARCH)
+    model, params = init_model(cfg, dev)
+    check(model.cache_dtype == torch.float8_e4m3fn, "musicgen's cache is "
+          "not float8")
+    per_fwd = 6 * cfg.n_layers + 1
+    inputs = {}
+
+    def bf16_embeds():
+        rec, inp = embeds_check(model, params, AUDIO_EMBEDS, SEED + 6,
+                                gate=False)
+        inputs["kw"] = inp[1]
+        emit({"phase": "vlm_audio", "arch": cfg.name, "dtype": cfg.dtype,
+              "kv_cache_dtype": "float8_e4m3fn", "input": "frame_embeds",
+              **rec})
+
+    drive(AUDIO_ARCH, ("fused_qmm",), bf16_embeds,
+          lambda: fp8_cache_vs_cpu(model, params, inputs["kw"]),
+          lambda: emulated_forwards(model, params, rng, per_fwd,
+                                    embeds=True))
+    profile_decode(model, params, rng)
+    box = [params]
+    del model, params, inputs
+    release()
+    audio_f32(cfg, box, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -2802,6 +3446,12 @@ def main():
     drive(f"{ARCH} chip", ("fused_qmm",),
           lambda: chip_full_width(model, params,
                                   np.random.default_rng(SEED + 2), tech))
+    # telemetry and fault-tolerant serving on the native path, which
+    # launches none of K1-K6
+    drive(f"{ARCH} trace", (),
+          lambda: trace_full_width(model, params, tech, dev))
+    drive(f"{ARCH} resilience", (),
+          lambda: resilience_full_width(cfg, params, tech, dev))
     specs = benchgen_specs()
     machine = calibrate(device=dev)  # launches K2: outside the window
     _, (bench,) = drive(
@@ -2838,8 +3488,9 @@ def main():
     del smodel, sparams
     release()
 
-    # the hybrid, MoE and sliding-window families, one model at a time
-    for path in (hybrid_path, moe_path, window_path):
+    # the hybrid, MoE, sliding-window, vlm and audio families, one model
+    # at a time
+    for path in (hybrid_path, moe_path, window_path, vlm_path, audio_path):
         path(dev, drive, rng)
         release()
     for row in kernels:  # launches on every path of this run

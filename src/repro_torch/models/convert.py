@@ -114,9 +114,10 @@ def _convert(tree, shapes, dtype, device, path=""):
 
 def params_from_jax(tree_of_numpy: Dict, cfg: ArchConfig,
                     device=None) -> Dict:
-    """The JAX ``LM`` parameter tree of the dense, moe, ssm or hybrid
-    family (stacked ``layers``, ``embed``, ``final_norm``, the hybrid's
-    ``shared_attn``; leaves as numpy arrays) as the
+    """The JAX ``LM`` parameter tree of any family (stacked ``layers``,
+    ``embed``, ``final_norm``, the hybrid's ``shared_attn``; the vlm and
+    audio families' trees are the dense one's, with internvl2's qkv biases
+    and musicgen's two-matrix gelu MLP; leaves as numpy arrays) as the
     port's parameters on ``device`` (default CUDA), each leaf in the dtype
     the reference gives it.  Keys and shapes are checked against ``cfg``."""
     return _convert(tree_of_numpy, _expected_shapes(cfg), _DTYPES[cfg.dtype],

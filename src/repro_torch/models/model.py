@@ -1,7 +1,11 @@
 """Model assembly: the decoder LM (counterpart of ``repro.models.model``).
 
-Families ported so far:
+Families:
   dense  : L x [GQA attention + MLP]
+  vlm    : dense, with precomputed patch embeddings (``prefix_embeds``)
+           in front of the tokens (internvl2; the vision tower is a stub)
+  audio  : dense over precomputed frame embeddings (``frame_embeds``) in
+           place of the token embedding (musicgen; the codec is a stub)
   moe    : L x [GQA attention + MoE]   (deepseek-moe, mixtral)
   ssm    : L x [Mamba-1]               (attention-free; falcon-mamba)
   hybrid : L x [Mamba-2] + one *shared* attention+MLP block applied after
@@ -16,9 +20,6 @@ attention; conv + state carries for ssm; both for hybrid, whose shared
 block keeps one KV cache per application) that the port updates in place
 (the JAX function returns a new one); the returned ``DecodeCache`` shares
 the caller's storage.
-
-The vlm and audio families raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -38,9 +39,7 @@ from repro_torch.models.layers import (apply_rope, dense_init, embed_apply,
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.numerics import matmul
 
-#: families not ported yet -> the ROADMAP.md queue-1 item that ports them
-_LATER_FAMILIES = {"vlm": 13, "audio": 13}
-_ATTN_FAMILIES = ("dense", "moe")
+_ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
 
@@ -280,10 +279,6 @@ class LM:
     """Decoder LM for one ArchConfig, on ``device`` (default CUDA)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
-        if cfg.family in _LATER_FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family} family is not ported yet: ROADMAP.md "
-                f"queue 1 item {_LATER_FAMILIES[cfg.family]}")
         if cfg.family not in _ATTN_FAMILIES + ("ssm", "hybrid"):
             raise ValueError(cfg.family)
         self.cfg = cfg
@@ -336,10 +331,26 @@ class LM:
         return sum(1 for _, _, s in self._segments() if s)
 
     # ------------------------------------------------------- forward -------
-    def apply(self, params, tokens, *, policy=None, collect_kv: bool = False,
+    def _embed_inputs(self, params, tokens, prefix_embeds, frame_embeds):
+        """The stack's input: ``frame_embeds`` (B, S, d) in place of the
+        token embedding, cast to the model dtype, and ``prefix_embeds``
+        (B, P, d), cast likewise, concatenated in front."""
+        if frame_embeds is not None:
+            x = frame_embeds.to(self.dtype)
+        else:
+            x = embed_apply(params["embed"], tokens)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(self.dtype), x], dim=1)
+        return x
+
+    def apply(self, params, tokens=None, *, prefix_embeds=None,
+              frame_embeds=None, policy=None, collect_kv: bool = False,
               collect_states: bool = False, logits_last_only: bool = False,
               last_index=None, moe_stats: bool = False):
-        """Full-sequence forward. Returns (logits, aux), with
+        """Full-sequence forward over ``tokens`` (B, S), or over
+        ``frame_embeds`` (B, S, d) (audio), with ``prefix_embeds`` (B, P, d)
+        in front (vlm; their positions come first and are unembedded too).
+        Returns (logits, aux), with
         ``collect_kv`` (attention families, hybrid) then (k, v) of shape
         (L or n_shared_applications, B, S, Hkv, D) in the cache dtype (None
         for a hybrid without a shared application), and with
@@ -356,7 +367,7 @@ class LM:
         the unembed are emulated: the ssm family's only policy-routed
         matmul is the unembed, the moe family's experts and router take
         none, nor do the hybrid's Mamba-2 blocks."""
-        x = embed_apply(params["embed"], tokens)
+        x = self._embed_inputs(params, tokens, prefix_embeds, frame_embeds)
         B = x.shape[0]
         x, aux, kv, states = self._stack(params, x, policy, collect_kv,
                                          collect_states)
@@ -442,7 +453,8 @@ class LM:
                 x = out
         return x, ((torch.stack(convs), torch.stack(hs)) if keep else None)
 
-    def _decode_states(self, params, tokens, policy, states):
+    def _decode_states(self, params, tokens, policy, states,
+                       prefix_embeds=None, frame_embeds=None):
         """The hybrid's decode states after a prefill, the JAX package's
         way: from a second forward whose shared blocks run with no policy
         (``_prefill_ssm_states``).  Under an emulating policy they differ
@@ -450,7 +462,7 @@ class LM:
         pass runs here; otherwise the first pass's are the same numbers."""
         if self.cfg.family != "hybrid" or not _emulates(policy):
             return states
-        x = embed_apply(params["embed"], tokens)
+        x = self._embed_inputs(params, tokens, prefix_embeds, frame_embeds)
         return self._stack(params, x, None, False, True)[3]
 
     # -------------------------------------------------------- caches -------
@@ -536,27 +548,35 @@ class LM:
         return logits, DecodeCache(cache.data, clen + 1)
 
     # -------------------------------------------------------- prefill ------
-    def _collect(self, params, tokens, policy, **kw):
+    def _collect(self, params, tokens, policy, prefix_embeds=None,
+                 frame_embeds=None, **kw):
         """One forward that returns what a prefill keeps: (logits, kv or
         None, states or None)."""
         fam = self.cfg.family
-        out = self.apply(params, tokens, policy=policy,
+        out = self.apply(params, tokens, prefix_embeds=prefix_embeds,
+                         frame_embeds=frame_embeds, policy=policy,
                          collect_kv=fam != "ssm",
                          collect_states=fam in ("ssm", "hybrid"), **kw)
         kv = out[2] if fam != "ssm" else None
         states = out[-1] if fam in ("ssm", "hybrid") else None
-        return out[0], kv, self._decode_states(params, tokens, policy,
-                                               states)
+        return out[0], kv, self._decode_states(
+            params, tokens, policy, states, prefix_embeds, frame_embeds)
 
-    def prefill(self, params, tokens, *, max_len: Optional[int] = None,
+    def prefill(self, params, tokens=None, *, prefix_embeds=None,
+                frame_embeds=None, max_len: Optional[int] = None,
                 policy=None):
-        """Run the full prompt, build a decode cache. Returns
-        (last_logits (B,V), cache).  A ring cache shorter than the prompt
-        keeps the prompt's tail, ring-aligned: position p at slot p %
-        smax, where decode writes next."""
-        logits, kv, states = self._collect(params, tokens, policy,
-                                           logits_last_only=True)
-        B, S = tokens.shape
+        """Run the full prompt (``tokens``, or ``frame_embeds``, after any
+        ``prefix_embeds``: ``apply``'s inputs), build a decode cache.
+        Returns (last_logits (B,V), cache); the cache's length counts the
+        prefix.  A ring cache shorter than the prompt keeps the prompt's
+        tail, ring-aligned: position p at slot p % smax, where decode
+        writes next."""
+        logits, kv, states = self._collect(
+            params, tokens, policy, prefix_embeds, frame_embeds,
+            logits_last_only=True)
+        B, S = (tokens if frame_embeds is None else frame_embeds).shape[:2]
+        if prefix_embeds is not None:
+            S += prefix_embeds.shape[1]
         if self.cfg.family == "ssm":  # the state does not grow with max_len
             cache = DecodeCache(dict(zip(("conv", "h"), states)), None)
             return logits[:, -1], self.cache_at_length(cache, S)

@@ -39,10 +39,21 @@ recycled.  Structure, as in the JAX engine:
     boundary on the fleet's unit (decoded tokens) and per admission on the
     prefill unit (the prompt's forward pass, including the logits that give
     the first token); ``energy_report()`` aggregates chip-level.
+  * **Drain and re-admission** — ``drain_fleet`` takes a fleet out of
+    service and re-admits its requests as *continuations* on surviving
+    fleets (``requeue``): the new fleet re-prefills the prompt and replays
+    the committed tokens through the decode path, the computation that
+    produced them, so the stream resumes where it stopped.  With no fleet
+    in service a drained request is parked, never dropped, until capacity
+    returns.  ``evacuate``, ``take_parked`` and ``load_report`` are the
+    hooks a router above several engines uses.  ``_filter_dispatch`` sits
+    between each dispatch's fetch and its commit: the identity here,
+    ``serve.resilience.ResilientServer``'s symptom pipeline there.
 
 The device state is updated in place (the JAX engine donates its buffers
 to the same effect).  Greedy sampling only.  The engine runs on the
-model's device.
+model's device.  ``ReferenceServer`` is the per-token engine kept as the
+baseline the batched engine's tokens and energy are held to.
 """
 from __future__ import annotations
 
@@ -73,13 +84,18 @@ class Request:
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     expired: bool = False
-    #: structurally rejected by validation: never admitted
+    #: structurally rejected (validation, backpressure, load shedding):
+    #: never admitted
     rejected: bool = False
     reject_reason: str = ""
     routed_unit: str = ""  # chip unit serving this request's decode phase
+    #: times this request was drained off a failing fleet and re-admitted
+    #: as a continuation (prefill + decode-path replay) on a surviving one
+    requeues: int = 0
     #: clock time ``submit()`` accepted the request (TTFT origin)
     submitted_s: Optional[float] = None
-    #: clock time the first output token was committed
+    #: clock time the first output token was committed (a continuation
+    #: keeps its first stamp)
     first_token_s: Optional[float] = None
     energy_j: float = 0.0  # total (partial if expired)
     unit_energy_j: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -186,10 +202,16 @@ class BatchedServer:
         # host-side slot table, fleet plan and per-fleet queues
         self._active: List[Optional[Request]] = [None] * slots
         self._slot_quota = [0] * slots  # 1 + device budget per slot
+        # committed tokens a re-admitted continuation still has to replay
+        # through the decode path before commits resume
+        self._slot_replay = [0] * slots
         self.finished: List[Request] = []
         self.rejected: List[Request] = []
         #: fleets taken out of service: admission never routes to them
         self._out_of_service: set = set()
+        #: drained requests with no fleet in service to re-route to: parked
+        #: (never dropped) until capacity returns
+        self._parked: List[Request] = []
         if chip_policy is None:
             self._fleets: Dict[str, Tuple[int, ...]] = {
                 "": tuple(range(slots))}
@@ -202,7 +224,12 @@ class BatchedServer:
                                  for name in self._fleets}
         self._queues: Dict[str, List[Request]] = {name: []
                                                   for name in self._fleets}
+        self._slot_fleet = {s: name for name, ids in self._fleets.items()
+                            for s in ids}
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        #: die/site label stamped on spans and metric samples (a router
+        #: above several engines sets it to the die's name)
+        self.trace_site = ""
         self.reset_run_counters()
 
     # ------------------------------------------------------ chip telemetry
@@ -270,6 +297,58 @@ class BatchedServer:
             in_service=self._fleet_in_service(name),
             active=sum(1 for s in ids if self._active[s] is not None))
             for name, ids in self._fleets.items()}
+
+    def load_report(self) -> Dict[str, float]:
+        """Instantaneous load for routing across engines: queued, seated
+        and parked request counts and the token backlog (the remaining
+        prefill + decode tokens of the seated and queued requests),
+        normalised by the slots still in service.  Host bookkeeping only:
+        no device sync."""
+        queued = sum(len(q) for q in self._queues.values())
+        active_tokens = 0
+        active = 0
+        for s, req in enumerate(self._active):
+            if req is None:
+                continue
+            active += 1
+            active_tokens += max(self._slot_quota[s] - len(req.output), 0)
+            if s in self._prefill_pos:  # prompt tokens still to prefill
+                active_tokens += len(req.prompt) - self._prefill_pos[s]
+        queued_tokens = sum(len(r.prompt) + r.max_new_tokens
+                            for q in self._queues.values() for r in q)
+        serving_slots = sum(len(ids) for n, ids in self._fleets.items()
+                            if self._fleet_in_service(n))
+        backlog = active_tokens + queued_tokens
+        return dict(queued=queued, active=active, parked=len(self._parked),
+                    slots=self.slots, serving_slots=serving_slots,
+                    backlog_tokens=backlog,
+                    load=backlog / max(serving_slots, 1))
+
+    def evacuate(self) -> List[Request]:
+        """Release every in-flight, queued and parked request untouched
+        (partial output and energy kept, device lanes deactivated) and hand
+        them back: a whole-die drain.  They are continuations: ``requeue``
+        on any server sharing this model and parameters replays their
+        committed tokens through the decode path and resumes them."""
+        out: List[Request] = []
+        released: List[int] = []
+        for s, req in enumerate(self._active):
+            if req is not None:
+                out.append(req)
+                released.append(s)
+        self._release_slots(released)
+        for name in self._queues:
+            out.extend(self._queues[name])
+            self._queues[name] = []
+        out.extend(self._parked)
+        self._parked = []
+        return out
+
+    def take_parked(self) -> List[Request]:
+        """Hand over the parked requests (drained with no fleet in service)
+        for placement elsewhere."""
+        parked, self._parked = self._parked, []
+        return parked
 
     # ------------------------------------------------------------ routing
     def _fleet_in_service(self, name: str) -> bool:
@@ -366,7 +445,8 @@ class BatchedServer:
         if self.tracer.enabled:
             now = self._clock()
             self.tracer.request_begin(req.uid, now)
-            self.tracer.event(req.uid, TraceEvent.REJECT, now, code=code)
+            self.tracer.event(req.uid, TraceEvent.REJECT, now, code=code,
+                              site=self.trace_site)
             self.tracer.end_attempt(req.uid, now, "rejected")
             self.tracer.end_request(req.uid, now, "rejected")
         raise RequestRejected(req, code, reason)
@@ -424,17 +504,28 @@ class BatchedServer:
         """Validate, route (``UnitFault`` when no fleet is in service) and
         queue a request on its fleet."""
         self.validate(req)
-        fleet = self._route(req)
-        if req.submitted_s is None:
+        if req.submitted_s is None:  # continuations keep their origin
             req.submitted_s = self._clock()
+        fleet = self._route(req)
+        self._check_admission(req, fleet)
         if self.chip_policy is not None:
             req.routed_unit = fleet
         self._queues[fleet].append(req)
         if self.tracer.enabled:
-            self.tracer.request_begin(req.uid, req.submitted_s,
-                                      prompt_tokens=len(req.prompt),
-                                      max_new_tokens=req.max_new_tokens)
-            self.tracer.event(req.uid, TraceEvent.ADMIT, self._clock())
+            self._trace_admit(req, fleet)
+
+    def _check_admission(self, req: Request, fleet: str) -> None:
+        """Hook between routing and queueing: raise ``RequestRejected``
+        to refuse the request on ``fleet``.  Admits everything here."""
+
+    def _trace_admit(self, req: Request, fleet: str) -> None:
+        self.tracer.request_begin(
+            req.uid, req.submitted_s,
+            prompt_tokens=int(np.asarray(req.prompt).size),
+            max_new_tokens=req.max_new_tokens, precision=req.precision,
+            accuracy_slo=req.accuracy_slo, deadline_s=req.deadline_s)
+        self.tracer.event(req.uid, TraceEvent.ADMIT, self._clock(),
+                          site=self.trace_site, fleet=fleet)
 
     def _bucket(self, n: int) -> int:
         if not self._bucketed:
@@ -450,7 +541,8 @@ class BatchedServer:
             status = "expired" if req.expired else "ok"
             self.tracer.event(
                 req.uid, TraceEvent.EXPIRE if req.expired
-                else TraceEvent.FINISH, now, tokens_out=len(req.output))
+                else TraceEvent.FINISH, now, site=self.trace_site,
+                tokens_out=len(req.output))
             self.tracer.end_attempt(req.uid, now, status)
             self.tracer.end_request(req.uid, now, status)
 
@@ -462,6 +554,99 @@ class BatchedServer:
         if slots:
             idx = torch.as_tensor(slots, device=self._active_mask.device)
             self._active_mask[idx] = False
+
+    # ------------------------------------------------ drain / re-admission
+    def _release_slots(self, slots: List[int]) -> None:
+        """Free the engine's and the device's slot state without touching
+        the requests."""
+        tr = self.tracer
+        for s in slots:
+            req = self._active[s]
+            if req is not None and tr.enabled:
+                now = self._clock()
+                tr.event(req.uid, TraceEvent.DRAIN, now,
+                         site=self.trace_site, slot=s)
+                tr.end_attempt(req.uid, now, "drained")
+            self._active[s] = None
+            self._slot_replay[s] = 0
+            self._prefill_pos.pop(s, None)
+        self._deactivate(slots)
+
+    def requeue(self, req: Request) -> str:
+        """Re-admit an in-flight request as a continuation: re-routed
+        (health-aware) to a surviving fleet and queued at the front
+        (drained traffic outranks new arrivals).  On admission the new
+        fleet re-prefills the prompt and replays the committed tokens
+        through the decode path, the computation that produced them, so
+        the stream resumes as it would have gone on (re-prefilling prompt
+        and output instead would cross from the decode path's numerics to
+        the prefill path's).  With no fleet in service the request is
+        parked, never dropped; the next admission with capacity back
+        re-routes it.  Returns the new fleet ('' when parked)."""
+        req.requeues += 1
+        try:
+            fleet = self._route(req)
+        except UnitFault:
+            self._parked.append(req)
+            if self.tracer.enabled:
+                self.tracer.event(req.uid, TraceEvent.PARK, self._clock(),
+                                  site=self.trace_site)
+            return ""
+        if self.chip_policy is not None:
+            req.routed_unit = fleet
+        self._queues[fleet].insert(0, req)
+        if self.tracer.enabled:
+            self.tracer.event(req.uid, TraceEvent.REQUEUE, self._clock(),
+                              site=self.trace_site, fleet=fleet,
+                              requeues=req.requeues)
+        return fleet
+
+    def drain_fleet(self, name: str, *, requeue: bool = True
+                    ) -> List[Request]:
+        """Take a fleet out of service and drain it: the requests on its
+        slots are released (device lanes deactivated, partial energy kept)
+        and, with ``requeue``, re-admitted as continuations on the
+        cheapest surviving fleet that still meets their precision and
+        accuracy class; its queued requests are re-routed the same way.
+        ``requeue=False`` force-drains: the requests finish as expired with
+        what they produced.  Returns the requests affected."""
+        self.set_fleet_in_service(name, False)
+        affected: List[Request] = []
+        released: List[int] = []
+        for s in self._fleets[name]:
+            req = self._active[s]
+            if req is None:
+                continue
+            affected.append(req)
+            released.append(s)
+        self._release_slots(released)
+        queued, self._queues[name] = self._queues[name], []
+        affected.extend(queued)
+        for req in affected:
+            if requeue:
+                self.requeue(req)
+            else:
+                self._expire(req)
+        return affected
+
+    def _unpark(self):
+        """Re-route the parked requests now that capacity may be back."""
+        if not self._parked:
+            return
+        parked, self._parked = self._parked, []
+        for req in parked:
+            try:
+                fleet = self._route(req)
+            except UnitFault:
+                self._parked.append(req)
+                continue
+            if self.chip_policy is not None:
+                req.routed_unit = fleet
+            self._queues[fleet].insert(0, req)
+            if self.tracer.enabled:
+                self.tracer.event(req.uid, TraceEvent.UNPARK,
+                                  self._clock(), site=self.trace_site,
+                                  fleet=fleet)
 
     def _expire_active(self, now: float):
         """Release slots whose request expired before this step."""
@@ -476,8 +661,9 @@ class BatchedServer:
         self._deactivate(released)
 
     def idle(self) -> bool:
-        """Nothing queued or seated."""
-        return all(not q for q in self._queues.values()) \
+        """Nothing queued, parked or seated."""
+        return not self._parked \
+            and all(not q for q in self._queues.values()) \
             and all(r is None for r in self._active)
 
     def _budget_for(self, req: Request) -> int:
@@ -492,17 +678,23 @@ class BatchedServer:
                       budget: int, now: float) -> bool:
         """Commit the token the prompt's last logits produced; returns True
         when the request is finished by it (zero budget or a first-token
-        stop), which the caller must free on the device."""
+        stop), which the caller must free on the device.  A continuation
+        (a request with committed tokens) commits nothing here: the
+        prefill recomputed its first token, and the decode path replays
+        the rest before commits resume."""
         self.tokens_decoded += 1
-        req.output.append(first)
-        if req.first_token_s is None:
-            req.first_token_s = now
-        if self.tracer.enabled:
-            self.tracer.event(req.uid, TraceEvent.DECODE_DISPATCH, now,
-                              tokens=1, slot=slot, first=True)
-        if budget == 0 or first in self._stop_set:
+        replay = len(req.output)
+        if not replay:
+            req.output.append(first)
+            if req.first_token_s is None:
+                req.first_token_s = now
+            if self.tracer.enabled:
+                self.tracer.event(req.uid, TraceEvent.DECODE_DISPATCH, now,
+                                  tokens=1, slot=slot, first=True)
+        if budget == 0 or (not replay and first in self._stop_set):
             self._finish(req)
             return True
+        self._slot_replay[slot] = max(replay - 1, 0)
         return False
 
     # ---------------------------------------------------------- admission
@@ -517,6 +709,7 @@ class BatchedServer:
 
     def _admit(self, now: float):
         """Per in-service fleet: seat its queue in its own slots."""
+        self._unpark()
         for fleet, slot_ids in self._fleets.items():
             if not self._fleet_in_service(fleet):
                 continue
@@ -583,13 +776,18 @@ class BatchedServer:
         self.host_syncs += 1
         now = self._clock()
         dead = []
+        tr = self.tracer
         for req, slot, f, budget in zip(reqs, slot_ids, first, budgets):
-            if self.tracer.enabled:
-                self.tracer.begin_attempt(req.uid, now, slot=slot)
-                self.tracer.event(req.uid, TraceEvent.SEAT, now, slot=slot)
-                self.tracer.event(req.uid, TraceEvent.PREFILL, now,
-                                  tokens=len(req.prompt), bucket=bucket,
-                                  slot=slot)
+            if tr.enabled:
+                tr.begin_attempt(req.uid, now, site=self.trace_site,
+                                 fleet=self._slot_fleet.get(slot, ""),
+                                 slot=slot)
+                tr.event(req.uid, TraceEvent.SEAT, now, slot=slot)
+                tr.event(req.uid, TraceEvent.PREFILL, now,
+                         tokens=len(req.prompt), bucket=bucket, slot=slot)
+                tr.count("bucket_hit", now,
+                         1.0 if bucket == len(req.prompt) else 0.0,
+                         self.trace_site)
             # the prompt's forward pass, including the logits that give the
             # first token: decode charges start with the first decode step
             self._charge_unit(req, self._prefill_unit(req),
@@ -608,6 +806,7 @@ class BatchedServer:
         """Move queued requests into their fleet's free lanes immediately
         (FIFO per in-service fleet) without device work; seated lanes
         prefill chunk by chunk."""
+        self._unpark()
         for fleet, slot_ids in self._fleets.items():
             if not self._fleet_in_service(fleet):
                 continue
@@ -624,7 +823,9 @@ class BatchedServer:
                 self._slot_pf_budget[slot] = self._budget_for(req)
                 self._slot_quota[slot] = 1 + self._slot_pf_budget[slot]
                 if self.tracer.enabled:
-                    self.tracer.begin_attempt(req.uid, now, slot=slot)
+                    self.tracer.begin_attempt(
+                        req.uid, now, site=self.trace_site,
+                        fleet=self._slot_fleet.get(slot, ""), slot=slot)
                     self.tracer.event(req.uid, TraceEvent.SEAT, now,
                                       slot=slot)
 
@@ -688,6 +889,9 @@ class BatchedServer:
                     self.tracer.event(req.uid, TraceEvent.PREFILL_CHUNK, now,
                                       tokens=clens[j], offset=offs[j],
                                       slot=s)
+                    self.tracer.count("bucket_hit", now,
+                                      1.0 if cb == clens[j] else 0.0,
+                                      self.trace_site)
                 if j not in finals:
                     self._prefill_pos[s] = offs[j] + clens[j]
                     continue
@@ -697,6 +901,39 @@ class BatchedServer:
                     self._active[s] = None
                     dead.append(s)
             self._deactivate(dead)
+
+    def _filter_dispatch(self, active_slots: List[int], toks_np: np.ndarray,
+                         emitted_np: np.ndarray, now: float,
+                         dispatch_dt_s: float
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """The hook between a dispatch's fetch and its commit.  The base
+        engine is fault-free: the identity.  ``ResilientServer`` applies
+        the injected fault symptoms here, feeds its health monitor and may
+        drain slots, which the commit loop then skips."""
+        return toks_np, emitted_np
+
+    def _sample_metrics(self, now: float, n_seated: int,
+                        decode_lanes: int) -> None:
+        """One step's gauge samples into the tracer's timelines (recording
+        tracers only: ``step`` guards the call)."""
+        tr = self.tracer
+        site = self.trace_site
+        slots = max(self.slots, 1)
+        tr.count("occupancy", now, n_seated / slots, site)
+        tr.count("decode_occupancy", now, decode_lanes / slots, site)
+        tr.count("prefill_occupancy", now,
+                 len(self._prefill_pos) / slots, site)
+        queued = sum(len(q) for q in self._queues.values())
+        tr.count("queued", now, float(queued), site)
+        tr.count("backlog_tokens", now,
+                 float(sum(len(r.prompt) + r.max_new_tokens
+                           for q in self._queues.values() for r in q)),
+                 site)
+        tr.count("decode_stall_frac", now, self.decode_stall_frac, site)
+        for name, ids in self._fleets.items():
+            seated = sum(1 for s in ids if self._active[s] is not None)
+            tr.count(f"fleet_util.{name or 'default'}", now,
+                     seated / max(len(ids), 1), site)
 
     # ------------------------------------------------------------ decoding
     def step(self, max_tokens: Optional[int] = None) -> int:
@@ -721,9 +958,12 @@ class BatchedServer:
         n_seated = sum(1 for r in self._active if r is not None)
         active_slots = [s for s, r in enumerate(self._active)
                         if r is not None and s not in self._prefill_pos]
+        if self.tracer.enabled:
+            self._sample_metrics(now, n_seated, len(active_slots))
         if not active_slots:
             return n_seated
         n = 1 if max_tokens is None else max(1, int(max_tokens))
+        t_dispatch = time.perf_counter()
         (self.cache, self._next_tok, self._active_mask, self._budget, toks,
          emitted) = self.model.decode_scan(
             self.params, self.cache, self._next_tok, self._active_mask,
@@ -734,16 +974,27 @@ class BatchedServer:
         self.dispatches += 1
         self.host_syncs += 1
         now = self._clock()
+        toks_np, emitted_np = self._filter_dispatch(
+            active_slots, toks_np, emitted_np, now,
+            time.perf_counter() - t_dispatch)
         released = []
         decode_emitted = 0
         for slot in active_slots:
             req = self._active[slot]
+            if req is None:  # drained by the dispatch filter
+                continue
             count = int(emitted_np[:, slot].sum())
             decode_emitted += count
             if self.tracer.enabled and count:
                 self.tracer.event(req.uid, TraceEvent.DECODE_DISPATCH, now,
                                   tokens=count, slot=slot)
-            req.output.extend(int(t) for t in toks_np[:count, slot])
+            for t in toks_np[:count, slot]:  # a lane emits a prefix
+                if self._slot_replay[slot]:
+                    # a continuation's replay: the decode path recomputed
+                    # a token already committed
+                    self._slot_replay[slot] -= 1
+                else:
+                    req.output.append(int(t))
             self.tokens_decoded += count
             self._charge_unit(req, self._fleet_units.get(req.routed_unit),
                               self.flops_per_token * count)
@@ -779,6 +1030,137 @@ class BatchedServer:
             if self.idle():
                 break
             self.step(n)
+        out, self.finished = self.finished, []
+        return out
+
+
+class ReferenceServer:
+    """The per-token engine: one host sync and one ``ChipPolicy`` charge
+    per decoded token, one eager prefill per admitted prompt, the slot's
+    whole cache lane rewritten at each admission.  Kept as the baseline
+    the batched engine's tokens and energy are held to."""
+
+    def __init__(self, model: LM, params, *, slots: int, max_len: int,
+                 pad_id: int = 0, chip_policy=None):
+        self.model = model
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.pad_id = pad_id
+        self.cfg = model.cfg
+        self.chip_policy = chip_policy
+        self._precision = getattr(self.cfg, "numerics_precision", None)
+        self.flops_per_token = 2.0 * self.cfg.active_param_count()
+        self.tokens_decoded = 0
+        self._unit_energy_j: Dict[str, float] = {}
+        self._queue: List[Request] = []
+        self._active: List[Optional[Request]] = [None] * slots
+        self.finished: List[Request] = []
+        self.cache = model.init_cache(slots, max_len)
+        self._slot_len = np.zeros(slots, np.int64)
+        self._next_tok = np.full((slots, 1), pad_id, np.int64)
+
+    def _charge(self, req: Request, phase: str, flops: float) -> None:
+        """Account ``flops`` on the unit the chip routes ``phase`` to."""
+        if self.chip_policy is None or not flops:
+            return
+        unit = self.chip_policy.unit_for_phase(phase,
+                                               precision=self._precision)
+        e_j = self.chip_policy.request_energy_j(phase, flops,
+                                                precision=self._precision)
+        req.energy_j += e_j
+        req.unit_energy_j[unit.name] = \
+            req.unit_energy_j.get(unit.name, 0.0) + e_j
+        self._unit_energy_j[unit.name] = \
+            self._unit_energy_j.get(unit.name, 0.0) + e_j
+
+    def energy_report(self) -> Dict[str, object]:
+        total = sum(self._unit_energy_j.values())
+        return dict(
+            chip=self.chip_policy.spec.name if self.chip_policy else None,
+            total_j=total,
+            per_unit_j=dict(self._unit_energy_j),
+            tokens_decoded=self.tokens_decoded,
+            j_per_token=(total / self.tokens_decoded
+                         if self.tokens_decoded else 0.0))
+
+    def submit(self, req: Request):
+        self._queue.append(req)
+
+    def _admit(self):
+        dev = self.model.device
+        for slot in range(self.slots):
+            if self._active[slot] is None and self._queue:
+                req = self._queue.pop(0)
+                self._active[slot] = req
+                if self.chip_policy is not None:
+                    req.routed_unit = self.chip_policy.unit_for_phase(
+                        "decode", precision=self._precision).name
+                prompt = np.asarray(req.prompt, np.int64)
+                last, cache1 = self.model.prefill(
+                    self.params, torch.as_tensor(prompt[None], device=dev),
+                    max_len=self.max_len)
+                self._charge(req, "prefill",
+                             self.flops_per_token * len(prompt))
+                self._write_slot_cache(slot, cache1)
+                self._slot_len[slot] = len(prompt)
+                tok = int(torch.argmax(last, dim=-1)[0])
+                req.output.append(tok)
+                self.tokens_decoded += 1
+                self._next_tok[slot, 0] = tok
+                if len(req.output) >= req.max_new_tokens:
+                    req.done = True
+                    self.finished.append(req)
+                    self._active[slot] = None
+
+    def _write_slot_cache(self, slot: int, cache1) -> None:
+        """Lane ``slot`` of the batched cache := the one-sequence cache
+        (its positions beyond the prompt's cache zeroed)."""
+        for name, dst in self.cache.data.items():
+            src = cache1.data[name][:, 0]
+            if name in ("k", "v") and src.shape[1] != dst.shape[2]:
+                dst[:, slot].zero_()
+                dst[:, slot, :src.shape[1]] = src
+            else:
+                dst[:, slot] = src
+
+    def step(self) -> int:
+        """One decode step over all active slots.  Returns #active."""
+        self._admit()
+        active = [s for s, r in enumerate(self._active) if r is not None]
+        if not active:
+            return 0
+        dev = self.model.device
+        cache = self.model.cache_at_length(self.cache, self._slot_len)
+        logits, _ = self.model.decode_step(
+            self.params, cache, torch.as_tensor(self._next_tok, device=dev))
+        toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        now = time.monotonic()
+        for slot in active:
+            req = self._active[slot]
+            self._slot_len[slot] += 1
+            tok = int(toks[slot])
+            req.output.append(tok)
+            self.tokens_decoded += 1
+            self._charge(req, "decode", self.flops_per_token)
+            self._next_tok[slot, 0] = tok
+            if req.deadline_s is not None and now > req.deadline_s:
+                req.expired = True
+                req.done = True
+            if len(req.output) >= req.max_new_tokens:
+                req.done = True
+            if req.done:
+                self.finished.append(req)
+                self._active[slot] = None
+        return len(active)
+
+    def run(self, max_steps: int = 10_000) -> List[Request]:
+        """Serve until drained; returns the requests finished since the
+        last ``run`` call."""
+        for _ in range(max_steps):
+            if not self._queue and all(r is None for r in self._active):
+                break
+            self.step()
         out, self.finished = self.finished, []
         return out
 

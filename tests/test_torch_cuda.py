@@ -681,3 +681,37 @@ def test_emulated_families_on_card_match_cpu(card, arch, per_fwd):
     want, _ = cpu.prefill(params, toks, policy=pol)
     got, _ = gpu.prefill(params_gpu, toks.to(card), policy=pol)
     assert (got.cpu() - want).abs().max() <= 4 * 2.0 ** -8 * want.abs().max()
+
+
+def test_emulated_vlm_with_prefix_on_card_matches_cpu(card):
+    """The reduced internvl2 (2 layers: 7 * 2 + 1 K1 launches a forward)
+    with 8 prefix embeddings in front of its tokens, under
+    EmulatedPolicy(bf16, fused): K1 on the card against the plain version
+    on the CPU, |delta| <= 4 * 2**-8 * max|logit|, for ``apply`` and for
+    the last logits of a prefill, whose cache length counts the prefix."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import LM
+    from repro_torch.models.numerics import EmulatedPolicy
+    cfg = dataclasses.replace(get_config("internvl2-1b").reduced(),
+                              dtype="float32")
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg, device=card)
+    params = cpu.init(seed=0)
+    params_gpu = _tree_to(params, card)
+    r = np.random.default_rng(0)
+    toks = torch.from_numpy(r.integers(0, 256, (2, 24)))
+    prefix = torch.from_numpy(r.standard_normal(
+        (2, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32))
+    pol = EmulatedPolicy("bf16", "fused")
+    want, _ = cpu.apply(params, toks, prefix_embeds=prefix, policy=pol)
+    before = fused_qmm.launches
+    got, _ = gpu.apply(params_gpu, toks.to(card),
+                       prefix_embeds=prefix.to(card), policy=pol)
+    assert fused_qmm.launches - before == 7 * cfg.n_layers + 1
+    assert got.shape == (2, 24 + cfg.n_prefix_tokens, gpu.vocab_padded)
+    assert (got.cpu() - want).abs().max() <= 4 * 2.0 ** -8 * want.abs().max()
+    want, wc = cpu.prefill(params, toks, prefix_embeds=prefix, policy=pol)
+    got, gc_ = gpu.prefill(params_gpu, toks.to(card),
+                           prefix_embeds=prefix.to(card), policy=pol)
+    assert int(gc_.length) == int(wc.length) == 24 + cfg.n_prefix_tokens
+    assert (got.cpu() - want).abs().max() <= 4 * 2.0 ** -8 * want.abs().max()

@@ -62,7 +62,10 @@ def test_slice_modules_are_scanned():
                 "core/latency_sim.py", "core/dse.py", "core/body_bias.py",
                 "core/localsearch.py", "core/trace.py", "core/autotune.py",
                 "numerics/registry.py", "core/softfloat.py",
-                "core/chip.py", "numerics/accuracy.py", "models/moe.py"):
+                "core/chip.py", "numerics/accuracy.py", "models/moe.py",
+                "faults.py", "telemetry/__init__.py", "telemetry/tracer.py",
+                "telemetry/export.py", "telemetry/profile.py",
+                "serve/__init__.py", "serve/resilience.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -102,6 +105,44 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # the same calls run when the caller asks for the CPU
     assert LM(cfg, device="cpu").device.type == "cpu"
     assert emulated_matmul(a, a.T, fmt="bf16", device="cpu").shape == (4, 4)
+
+
+def test_servers_raise_without_cuda(monkeypatch):
+    """The fault-tolerant and the traced server run on the card unless the
+    caller asks for the CPU: their model and chip policy raise without
+    CUDA, and run with ``device="cpu"``."""
+    from repro_torch.core import chip, energy_model
+    from repro_torch.models import LM
+    from repro_torch.serve import BatchedServer, Request, ResilientServer
+    from repro_torch.telemetry import Tracer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tbase.get_config("tinyllama-1.1b").reduced()
+    params = energy_model.TechParams(tuple(
+        s[1] for s in energy_model._PARAM_SPEC))
+    calls = [lambda: ResilientServer(
+                 LM(cfg), {}, slots=2, max_len=16,
+                 chip_policy=chip.ChipPolicy(chip.fabricated_chip(
+                     None, params), params)),
+             lambda: BatchedServer(LM(cfg), {}, slots=2, max_len=16,
+                                   tracer=Tracer()),
+             lambda: chip.fabricated_chip()]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    model = LM(cfg, device="cpu")
+    tracer = Tracer()
+    for server in (ResilientServer(
+            model, model.init(seed=0), slots=2, max_len=16,
+            chip_policy=chip.ChipPolicy(chip.fabricated_chip(None, params),
+                                        params), tracer=tracer),
+            BatchedServer(model, model.init(seed=0), slots=2, max_len=16,
+                          tracer=tracer)):
+        req = Request(uid=len(tracer.roots()), prompt=np.arange(4),
+                      max_new_tokens=2)
+        server.submit(req)
+        server.run()
+        assert req.done and len(req.output) == 2
+    assert tracer.check_integrity() == [] and len(tracer.roots()) == 2
 
 
 def test_dse_entry_points_raise_without_cuda(monkeypatch):

@@ -183,15 +183,34 @@ def test_dense_configs_match_jax(arch, spec):
         nxt = np.array(jnp.argmax(jlog[:, -1], -1))[:, None]
 
 
-def test_later_families_raise_not_implemented():
-    """The vlm and audio families wait for ROADMAP item 13; the hybrid,
-    MoE and sliding-window configs build."""
-    for arch in ("internvl2-1b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
-                           "item 13"):
-            LM(get_config(arch).reduced(), device="cpu")
-    for arch in ("zamba2-1.2b", "deepseek-moe-16b", "mixtral-8x7b"):
-        assert LM(get_config(arch), device="cpu").cfg.name == arch
+ALL_ARCHS = ["chatglm3-6b", "deepseek-67b", "deepseek-moe-16b",
+             "falcon-mamba-7b", "internvl2-1b", "mixtral-8x7b",
+             "musicgen-large", "starcoder2-7b", "tinyllama-1.1b",
+             "zamba2-1.2b"]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_config_builds(arch):
+    """Each of the ten configs builds in the port, its ``reduced()`` config
+    runs a forward on the CPU, and the full config builds too."""
+    from repro_torch.configs.base import all_configs
+    assert sorted(all_configs()) == ALL_ARCHS
+    assert LM(get_config(arch), device="cpu").cfg.name == arch
+    cfg = get_config(arch).reduced()
+    model = LM(cfg, device="cpu")
+    params = model.init(seed=0)
+    B, S = 2, 5
+    toks = torch.zeros((B, S), dtype=torch.int64)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["prefix_embeds"] = torch.ones((B, cfg.n_prefix_tokens,
+                                          cfg.d_model))
+    elif cfg.family == "audio":
+        toks, kw["frame_embeds"] = None, torch.ones((B, S, cfg.d_model))
+    logits, _ = model.apply(params, toks, **kw)
+    n = S + (cfg.n_prefix_tokens if cfg.family == "vlm" else 0)
+    assert logits.shape == (B, n, model.vocab_padded)
+    assert bool(torch.isfinite(logits).all())
 
 
 # ------------------------------------------------------------ ssm family

@@ -34,6 +34,7 @@ from repro.serve import engine as jengine
 from repro_torch.configs.base import get_config
 from repro_torch.models import LM
 from repro_torch.models.convert import params_from_jax
+from repro_torch.serve import engine as tengine
 from repro_torch.serve import (BatchedServer, Request, RequestRejected,
                                bucket_length, greedy_decode)
 
@@ -246,6 +247,35 @@ def test_trace_events_match_jax(pair, chunk):
             [(e[0], e[2].get("tokens")) for e in want.events_for(uid)]
 
 
+def test_reference_server_matches_jax(pair):
+    """The per-token ``ReferenceServer`` (one host sync per token, the
+    slot's cache lane rewritten at admission): the same tokens as the JAX
+    package's on the same weights, with more requests than slots, and as
+    the port's batched engine."""
+    from repro_torch.serve import ReferenceServer
+    jm, jp, tm, tp = pair
+    prompts = _prompts(256, (3, 9, 17, 6, 12))
+    new = (6, 4, 8, 1, 5)
+    outs = {}
+    for key, cls, req_cls, model, params, dtype in (
+            ("jax", jengine.ReferenceServer, jengine.Request, jm, jp,
+             np.int32),
+            ("port", ReferenceServer, Request, tm, tp, np.int64),
+            ("batched", BatchedServer, Request, tm, tp, np.int64)):
+        server = cls(model, params, slots=2, max_len=32)
+        reqs = [req_cls(uid=i, prompt=p.astype(dtype), max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, new))]
+        for r in reqs:
+            server.submit(r)
+        done = server.run()
+        assert sorted(r.uid for r in done) == list(range(len(reqs)))
+        outs[key] = [list(r.output) for r in reqs]
+        assert server.tokens_decoded == sum(new)
+    assert outs["port"] == outs["jax"]
+    assert outs["port"] == outs["batched"]
+    assert [len(o) for o in outs["port"]] == list(new)
+
+
 def test_fleet_out_of_service_refuses_submits(dense):
     from repro_torch.faults import UnitFault
     cfg, model, params = dense
@@ -259,6 +289,152 @@ def test_fleet_out_of_service_refuses_submits(dense):
     server.set_fleet_in_service("", True)
     server.submit(Request(uid=1, prompt=p, max_new_tokens=2))
     assert [len(r.output) for r in server.run()] == [2]
+
+
+# ------------------------------------- drain / re-admission vs the JAX engine
+MAX_DRAIN_LEN = 48
+
+
+def _both(pair):
+    """(engine module, model, params, prompt dtype) for each package."""
+    jm, jp, tm, tp = pair
+    return {"jax": (jengine, jm, jp, np.int32),
+            "port": (tengine, tm, tp, np.int64)}
+
+
+def _load_script(eng, model, params, dtype):
+    """``load_report`` with a queued long prompt, a seated mid-prefill lane
+    and the one fleet out of service."""
+    busy, long_, chunky = [
+        eng.Request(uid=i, prompt=p.astype(dtype), max_new_tokens=8)
+        for i, p in enumerate(_prompts(256, (4, 30, 13)))]
+    server = eng.BatchedServer(model, params, slots=1, max_len=48)
+    server.submit(busy)
+    server.step()  # occupies the only slot: the next submit stays queued
+    reports = [server.load_report()]
+    server.submit(long_)
+    reports.append(server.load_report())
+    server.set_fleet_in_service("", False)
+    reports.append(server.load_report())
+    chunked = eng.BatchedServer(model, params, slots=1, max_len=48,
+                                prefill_chunk=4)
+    chunked.submit(chunky)
+    chunked.step()  # seated, one 4-token chunk done, 9 prompt tokens left
+    reports.append(chunked.load_report())
+    return reports
+
+
+def test_load_report_matches_jax(pair):
+    """The token-weighted backlog: a queued prompt adds its prompt and
+    decode tokens, a mid-prefill lane its un-prefilled prompt tokens, and
+    an out-of-service fleet's slots leave the divisor; every report equal
+    to the JAX engine's."""
+    got = _load_script(*_both(pair)["port"])
+    want = _load_script(*_both(pair)["jax"])
+    assert got == want
+    assert got[1]["backlog_tokens"] - got[0]["backlog_tokens"] == 30 + 8
+    assert got[2]["serving_slots"] == 0
+    assert got[2]["load"] == got[2]["backlog_tokens"]
+    assert got[3]["active"] == 1 and got[3]["backlog_tokens"] >= 9
+
+
+def _evacuate_script(eng, model, params, dtype, where):
+    """Evacuate a server mid-prefill (nothing committed) or mid-decode
+    (tokens committed, one request still queued) and requeue the requests
+    on a fresh server with another slot count."""
+    if where == "mid_prefill":
+        lens, new, kw, steps = (13,), (5,), dict(prefill_chunk=4), 1
+    else:
+        lens, new, kw, steps = (5, 11, 7), (14, 12, 10), {}, 2
+    reqs = [eng.Request(uid=i, prompt=p.astype(dtype), max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(_prompts(256, lens, seed=5),
+                                           new))]
+    first = eng.BatchedServer(model, params, slots=2 if len(reqs) > 1
+                              else 1, max_len=MAX_DRAIN_LEN, **kw)
+    for r in reqs:
+        first.submit(r)
+    for _ in range(steps):
+        first.step(2)
+    at_drain = [list(r.output) for r in reqs]
+    drained = first.evacuate()
+    out = dict(at_drain=at_drain, drained=[r.uid for r in drained],
+               idle=first.idle(), load=first.load_report(),
+               mask=bool(np.asarray(first._active_mask).any()))
+    second = eng.BatchedServer(model, params, slots=3, max_len=MAX_DRAIN_LEN,
+                               **kw)
+    out["fleets"] = [second.requeue(r) for r in drained]
+    done = second.run(dispatch_tokens=2)
+    out["done"] = sorted(r.uid for r in done)
+    out["outputs"] = [list(r.output) for r in reqs]
+    out["requeues"] = [r.requeues for r in reqs]
+    out["state"] = [(r.done, r.expired) for r in reqs]
+    return out
+
+
+@pytest.mark.parametrize("where", ["mid_prefill", "mid_decode"])
+def test_evacuate_and_requeue_match_jax(pair, where):
+    """``evacuate`` hands every seated and queued request back untouched;
+    ``requeue`` on a fresh server resumes each as a continuation (the
+    committed tokens replayed through the decode path): the same streams
+    as the JAX engine's and as an uninterrupted ``greedy_decode``."""
+    both = _both(pair)
+    got = _evacuate_script(*both["port"], where)
+    want = _evacuate_script(*both["jax"], where)
+    assert got == want
+    assert got["idle"] and not got["mask"]
+    assert got["load"]["active"] == got["load"]["queued"] == 0
+    assert got["fleets"] == [""] * len(got["drained"])
+    assert got["requeues"] == [1] * len(got["drained"])
+    if where == "mid_prefill":
+        assert got["at_drain"] == [[]]
+    else:  # 5 and 7 share a pad bucket and are seated with tokens
+        # committed; the 11-token prompt is still queued
+        assert got["drained"] == [0, 2, 1]
+        assert [len(o) > 0 for o in got["at_drain"]] == [True, False, True]
+    _, tm, tp, _ = both["port"]
+    lens = (13,) if where == "mid_prefill" else (5, 11, 7)
+    new = (5,) if where == "mid_prefill" else (14, 12, 10)
+    for p, n, out in zip(_prompts(256, lens, seed=5), new, got["outputs"]):
+        assert out == greedy_decode(tm, tp, p, n, max_len=MAX_DRAIN_LEN)
+
+
+def _force_drain_script(eng, model, params, dtype):
+    """Force-drain (``requeue=False``) the one fleet mid-flight."""
+    ps = _prompts(256, (4, 6, 5), seed=7)
+    seated = [eng.Request(uid=i, prompt=p.astype(dtype), max_new_tokens=40)
+              for i, p in enumerate(ps[:2])]
+    queued = eng.Request(uid=2, prompt=ps[2].astype(dtype),
+                         max_new_tokens=4)
+    server = eng.BatchedServer(model, params, slots=2, max_len=MAX_DRAIN_LEN)
+    for r in seated + [queued]:
+        server.submit(r)
+    server.step()
+    server.step()
+    before = [list(r.output) for r in seated]
+    affected = server.drain_fleet("", requeue=False)
+    return dict(
+        before=before, affected=sorted(r.uid for r in affected),
+        active=[a is None for a in server._active],
+        mask=bool(np.asarray(server._active_mask).any()),
+        outputs=[list(r.output) for r in seated + [queued]],
+        state=[(r.done, r.expired) for r in seated + [queued]],
+        finished=sorted(r.uid for r in server.finished),
+        next_step=server.step(), load=server.load_report(),
+        decoded=server.tokens_decoded)
+
+
+def test_force_drain_matches_jax(pair):
+    """Seated requests finish as expired with exactly the tokens they had,
+    the queued one with none; host and device slot state is released and
+    the next step does nothing.  Equal to the JAX engine's."""
+    got = _force_drain_script(*_both(pair)["port"])
+    want = _force_drain_script(*_both(pair)["jax"])
+    assert got == want
+    assert got["affected"] == got["finished"] == [0, 1, 2]
+    assert got["active"] == [True, True] and not got["mask"]
+    assert got["outputs"][:2] == got["before"] and got["outputs"][2] == []
+    assert all(o for o in got["before"])
+    assert got["state"] == [(True, True)] * 3 and got["next_step"] == 0
 
 
 # ------------------------------------------------------------ ssm family

@@ -155,6 +155,67 @@ def drive_sp(ns, server_cls):
     server.run(max_steps=100)
     return dict(reqs=[req_row(r) for r in reqs],
                 energy_report=server.energy_report())
+
+
+def drive_drain(ns):
+    """An sp die: force-drain the busy fleet (energy frozen), drain the
+    other with every fleet out of service (the requests park), hand the
+    parked requests over with ``take_parked`` and resume them on a fresh
+    server; ``load_report`` along the way."""
+    eng, chip, params = ns["engine"], ns["chip"], ns["P"]
+    pol = chip.ChipPolicy(chip.fabricated_chip("sp", params), params)
+
+    def server():
+        return eng.BatchedServer(ns["model"], ns["params"], slots=4,
+                                 max_len=48, chip_policy=pol,
+                                 deadline_routing=True, clock=FakeClock(1.0))
+
+    def fresh(uids):  # bulk, then two deadline-bound (the other fleet)
+        return [eng.Request(uid=i, prompt=ps[i], max_new_tokens=new[i],
+                            deadline_s=1e9 if i >= 3 else None)
+                for i in uids]
+
+    ps = prompts(256, (4, 6, 5, 7, 9), ns["dtype"], seed=15)
+    new = (30, 30, 4, 12, 10)
+    reqs = fresh(range(5))
+    first = server()
+    out = dict(fleets=dict(first._fleets))
+    for r in reqs[:3]:
+        first.submit(r)
+    first.step()
+    first.step()
+    out["load_before"] = first.load_report()
+    before = [req_row(r) for r in reqs[:3]]
+    fleet = reqs[0].routed_unit
+    affected = first.drain_fleet(fleet, requeue=False)
+    out["force"] = dict(fleet=fleet, affected=sorted(r.uid for r in affected),
+                        before=before, after=[req_row(r) for r in reqs[:3]],
+                        next_step=first.step(),
+                        energy=first.energy_report())
+    for r in reqs[3:]:
+        first.submit(r)
+    first.step()
+    first.step()
+    out["routed_around"] = [r.routed_unit for r in reqs[3:]]
+    for name in first._fleets:
+        if name != fleet:
+            first.drain_fleet(name, requeue=True)
+    out["parked_load"] = first.load_report()
+    parked = first.take_parked()
+    out["parked"] = [(r.uid, list(r.output), r.requeues) for r in parked]
+    out["after_take"] = first.load_report()
+    second = server()
+    out["resumed_fleets"] = [second.requeue(r) for r in parked]
+    second.run(max_steps=100)
+    out["resumed"] = [req_row(r) for r in reqs[3:]]
+    out["energy_second"] = second.energy_report()
+    third = server()
+    whole = fresh(range(3, 5))
+    for r in whole:
+        third.submit(r)
+    third.run(max_steps=100)
+    out["uninterrupted"] = [list(r.output) for r in whole]
+    return out
 '''
 
 _REF = r"""
@@ -182,6 +243,7 @@ for chunk in (None, 4):
     out["drive", chunk] = drive(ns, chunk)
 out["sp_bulk"] = drive_sp(ns, engine.BatchedServer)
 out["sp_ref"] = drive_sp(ns, engine.ReferenceServer)
+out["drain"] = drive_drain(ns)
 with open(sys.argv[2], "wb") as fh:
     pickle.dump(out, fh)
 """
@@ -298,11 +360,16 @@ def test_energy_is_the_per_token_sum(ref, ns, chunk):
 
 def test_bulk_energy_matches_jax_per_token_reference(ref, ns):
     """The port's dispatch-boundary charging against JAX's per-token
-    ``ReferenceServer`` (and JAX's own ``BatchedServer``) on an sp die."""
+    ``ReferenceServer`` (and JAX's own ``BatchedServer``) on an sp die, and
+    the port's ``ReferenceServer`` against JAX's."""
     got = drive_sp(ns, engine.BatchedServer)
     for want in (ref["sp_ref"], ref["sp_bulk"]):
         _same_reqs(got["reqs"], want["reqs"])
         _same_report(got["energy_report"], want["energy_report"])
+    # and the port's own per-token engine against JAX's
+    got = drive_sp(ns, engine.ReferenceServer)
+    _same_reqs(got["reqs"], ref["sp_ref"]["reqs"])
+    _same_report(got["energy_report"], ref["sp_ref"]["energy_report"])
 
 
 def test_no_policy_engine_charges_nothing(ns):
@@ -315,3 +382,37 @@ def test_no_policy_engine_charges_nothing(ns):
     assert r.routed_unit == "" and r.energy_j == 0.0 and not r.unit_energy_j
     assert server.energy_report()["total_j"] == 0.0
     assert list(server.fleet_report()) == ["(default)"]
+
+
+def test_drain_park_and_take_parked_match_jax(ref, ns):
+    """``drain_fleet(requeue=False)`` finishes the fleet's requests as
+    expired with their tokens and per-unit energy frozen; draining the
+    last fleet in service parks its requests; ``take_parked`` hands them
+    over and ``requeue`` on a fresh server resumes them as an uninterrupted
+    run would have gone on.  Tokens, load reports and states equal to the
+    JAX engine's, energies at rel 1e-9."""
+    got, want = drive_drain(ns), ref["drain"]
+    for key in ("fleets", "load_before", "routed_around", "parked_load",
+                "parked", "after_take", "resumed_fleets", "uninterrupted"):
+        assert got[key] == want[key], key
+    gf, wf = got["force"], want["force"]
+    assert (gf["fleet"], gf["affected"], gf["next_step"]) == \
+        (wf["fleet"], wf["affected"], wf["next_step"])
+    for key in ("before", "after"):
+        _same_reqs(gf[key], wf[key])
+    _same_report(gf["energy"], wf["energy"])
+    _same_reqs(got["resumed"], want["resumed"])
+    _same_report(got["energy_second"], want["energy_second"])
+    # the port's own invariants
+    assert gf["affected"] == [0, 1, 2] and gf["next_step"] == 0
+    for b, a in zip(gf["before"], gf["after"]):
+        assert a["output"] == b["output"] and a["energy"] == b["energy"]
+        assert a["units"] == b["units"] and a["done"] and a["expired"]
+    assert [bool(b["output"]) for b in gf["before"]] == [True, True, False]
+    assert all(u != gf["fleet"] for u in got["routed_around"])
+    assert got["parked_load"]["parked"] == 2
+    assert got["parked_load"]["serving_slots"] == 0
+    assert got["after_take"]["parked"] == 0
+    assert [p[2] for p in got["parked"]] == [1, 1]
+    assert all(p[1] for p in got["parked"])  # tokens committed before
+    assert [r["output"] for r in got["resumed"]] == got["uninterrupted"]

@@ -98,7 +98,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
      recovery's latency in sim and wall seconds printed; then the
      per-token ``ReferenceServer`` serving phase 3's 8 requests in bf16,
      every token held to 4 * 2**-8 of ``LM.apply``;
-  3e. benchgen on the card: ``calibrate()`` measures the card's rates,
+  3e. cluster serving of tinyllama-1.1b in float32 (the bf16 weights
+     widened; both dies serve them), counters set to 0 just before: a
+     ``ClusterRouter`` over an fp8_e4m3 die ``eco`` and an fp32 die
+     ``gold`` (4 slots each, accuracy fleets 5e-2 and 1e-7, 8 tokens a
+     dispatch, 64-token prefill chunks) on one ``SimClock``, under a seeded
+     open-loop trace (3 simulated seconds, bursty and diurnal, loose bulk
+     and tight interactive requests 3:1) replayed at 0.1 s a step: steady
+     (every arrival finished, none rejected or expired, every token within
+     4 * 2**-8 of ``LM.apply``, tight traffic only on gold, eco serving
+     some of the loose; latency and TTFT percentiles in simulated seconds,
+     J per request and per token, per-die utilization and wall seconds
+     printed); the same trace with eco killed at 2.0 simulated seconds
+     (at least one request in flight on eco, as many migrations as
+     evacuated requests, each finished on gold with a requeue, nothing
+     lost, every stream bitwise the steady run's or parting where the
+     single-lane decode path puts the two picks within 4 * 2**-8; each
+     migration's recovery in ticks and wall seconds printed); both dies
+     failed, 3 requests parked and finished once gold is restored, an
+     unknown precision and an unmeetable SLO rejected with the router's
+     codes; one 4x128 prefill under each die's decode unit numerics
+     (fp8_e4m3 and fp32, cascade_fwd), 155 K1 launches each, bitwise the
+     same prefill with K1's plain version; ``tune_cluster`` of a 3:1
+     bulk/interactive mix at the full ``TUNE_*`` grids on the card and on
+     the CPU, identical picks and balanced throughput within 1e-9; then
+     ``python -m repro_torch.launch.cluster --fail-at 2.0 --fail-die eco``
+     and ``python -m repro_torch.launch.serve --chaos kill`` run on the
+     card, each exiting 0 with every request finished;
+  3f. benchgen on the card: ``calibrate()`` measures the card's rates,
      then, counters set to 0 just before and read just after,
      ``validate`` of the default specs and two full-width flash specs
      against those rates, in which K1, K2, K4 and K5 must each launch;
@@ -1455,7 +1482,7 @@ def chip_full_width(model, params, rng, tech):
 
 
 # ---------------------------------------------------------------------------
-# phases 3d-3e: telemetry and fault-tolerant serving on tinyllama-1.1b
+# phases 3c-3d: telemetry and fault-tolerant serving on tinyllama-1.1b
 # ---------------------------------------------------------------------------
 # each traced and untraced serve of the chip phase's requests runs this
 # many times, alternating, for tracing's cost in served tokens/s
@@ -1809,6 +1836,457 @@ def resilience_full_width(cfg, params, tech, dev):
     emit({"phase": "resilience", "arch": cfg.name, "dtype": "float32",
           "slots": s["slots"], "requests": len(prompts),
           "new_tokens": s["new_tokens"], "tick_s": TICK, **out})
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: cluster serving on tinyllama-1.1b
+# ---------------------------------------------------------------------------
+# the cluster phase: the eco+gold pair (one fp8 unit, one fp32 unit), a
+# server of 4 slots on each, on one simulated clock advanced `tick` a step;
+# eco is killed at `kill_at` simulated seconds
+CLUSTER = dict(slots=4, max_len=256, dispatch_tokens=8, prefill_chunk=64,
+               accuracy_fleets=(5e-2, 1e-7), tick=0.1, kill_at=2.0,
+               parked=3, parked_tokens=8, tune_max_chips=4)
+# the seeded open-loop trace: bursty, diurnal, 3:1 loose bulk to tight
+# interactive traffic; 3 simulated seconds (15 arrivals) keep the phase
+# near a minute on an H100, where 6 (36 arrivals) took 48 s to replay
+# twice
+CLUSTER_TRACE = dict(horizon_s=3.0, base_rate_rps=2.0,
+                     diurnal_amplitude=0.6, diurnal_period_s=12.0,
+                     burst_multiplier=3.0, burst_on_s=1.5, burst_off_s=5.0,
+                     seed=7)
+
+
+def eco_gold():
+    """The two-die cluster of ``launch.cluster``: ``eco`` with one fp8_e4m3
+    unit (rel_err 1e-2, 0.5 pJ/FLOP), ``gold`` with one fp32 unit (1e-8,
+    4.0 pJ/FLOP)."""
+    from repro_torch.cluster import ClusterSpec
+    from repro_torch.core import chip
+    from repro_torch.core.formats import FP32, FP8_E4M3
+    from repro_torch.launch.serve import tiered_unit
+    return ClusterSpec("eco+gold", (
+        chip.ChipSpec("eco", (tiered_unit("decode_eco", FP8_E4M3, 1e-2,
+                                          0.5),)),
+        chip.ChipSpec("gold", (tiered_unit("decode_gold", FP32, 1e-8,
+                                           4.0),))))
+
+
+def cluster_router(model, params, tech):
+    """A ``ClusterRouter`` over ``eco_gold()`` on a fresh ``SimClock``."""
+    from repro_torch.cluster import ClusterRouter, SimClock
+    c = CLUSTER
+    clock = SimClock()
+    router = ClusterRouter(model, params, eco_gold(), slots=c["slots"],
+                           max_len=c["max_len"], clock=clock,
+                           accuracy_fleets=c["accuracy_fleets"],
+                           dispatch_tokens=c["dispatch_tokens"],
+                           prefill_chunk=c["prefill_chunk"],
+                           tech_params=tech)
+    return router, clock
+
+
+def cluster_trace(vocab):
+    """CLUSTER_TRACE's arrivals: loose bulk requests (weight 3, prompts of
+    16-128 tokens, 32 new, accuracy_slo 5e-2) and tight interactive ones
+    (weight 1, 24-96 tokens, 16 new, 1e-7, a deadline 120 s out)."""
+    from repro_torch.cluster import RequestClass, TraceConfig, generate
+    return generate(TraceConfig(**CLUSTER_TRACE, classes=(
+        RequestClass("loose_bulk", weight=3, prompt_lens=(16, 32, 64, 128),
+                     max_new_tokens=32, accuracy_slo=5e-2),
+        RequestClass("tight_interactive", weight=1,
+                     prompt_lens=(24, 48, 96), max_new_tokens=16,
+                     accuracy_slo=1e-7, deadline_slack_s=120.0))), vocab)
+
+
+def timed_steps(router, clock, watch=None):
+    """Wrap ``router.step``: each step ends with a synchronize and logs
+    (sim s, wall s); with ``watch`` ({uid: (request, tokens it held at the
+    kill)}) the first step after which a watched request holds more tokens
+    is its recovery, logged per uid."""
+    log, recovered = [], {}
+    step = router.step
+
+    def timed(max_tokens=None):
+        n = step(max_tokens)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        log.append((clock.t, now))
+        for uid, (r, held) in (watch or {}).items():
+            if uid not in recovered and len(r.output) > held:
+                recovered[uid] = (clock.t, now)
+        return n
+
+    router.step = timed
+    return log, recovered
+
+
+def plain_prefill(model, params, toks, policy):
+    """``model.prefill`` under ``policy`` with K1 replaced by its plain
+    version (``fused_qmm_ref`` at the kernel's 128 x 128 tiling) on the
+    same device: nothing is launched or counted."""
+    from repro_torch.kernels import fused
+    from repro_torch.kernels.ref import TILE
+    kernel = fused.fused_qmm
+
+    def plain(a, b, **kw):
+        return fused.fused_qmm_ref(a, b, bm=TILE, bn=TILE, **kw)
+
+    fused.fused_qmm = plain
+    try:
+        logits, _ = model.prefill(params, toks, policy=policy)
+    finally:
+        fused.fused_qmm = kernel
+    return logits
+
+
+class Launcher:
+    """``python -m module args`` started from the checkout (on the card:
+    the launchers' default device) with its output in temporary files and
+    its end time taken by a thread; ``finish`` waits, requires exit 0 and
+    returns the output lines and the wall seconds; ``close`` kills it if
+    it still runs and closes its files."""
+
+    def __init__(self, module, *args):
+        import os
+        import tempfile
+        import threading
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
+            if p))
+        self.what = " ".join((module,) + args)
+        self.out, self.err = tempfile.TemporaryFile(), tempfile.TemporaryFile()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", module, *args],
+                                     cwd=ROOT, env=env, stdout=self.out,
+                                     stderr=self.err)
+        self.ended = None
+
+        def wait():
+            self.proc.wait()
+            self.ended = time.perf_counter()
+
+        self.waiter = threading.Thread(target=wait, daemon=True)
+        self.waiter.start()
+
+    def finish(self, timeout=600):
+        self.waiter.join(timeout)
+        check(self.ended is not None, f"{self.what} still runs after "
+              f"{timeout} s")
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read().decode(), self.err.read().decode()
+        check(self.proc.returncode == 0, f"{self.what} exited "
+              f"{self.proc.returncode}: {err[-2000:]}")
+        return out.splitlines(), self.ended - self.t0
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+
+
+def cluster_served(rep_finished, trace, what):
+    """Every arrival of ``trace`` finished with its whole budget, none
+    rejected or expired."""
+    reqs = [a.request for a in trace]
+    check(sorted(r.uid for r in rep_finished) == sorted(r.uid for r in reqs)
+          and all(r.done and not r.expired and not r.rejected and
+                  len(r.output) == r.max_new_tokens for r in reqs),
+          f"{what}: requests lost, rejected, expired or cut: "
+          f"{[(r.uid, len(r.output), r.done) for r in reqs]}")
+    return reqs, [np.asarray(r.prompt, np.int64) for r in reqs]
+
+
+def cluster_full_width(cfg, params, tech, dev):
+    """Cluster serving of tinyllama-1.1b at full width in float32 (the
+    bf16 weights widened, exactly; both dies serve them): the eco+gold
+    pair under a seeded open-loop trace replayed at one tick a step
+    (steady: nothing lost, every token within NEAR_TIE of ``LM.apply``,
+    tight traffic only on gold, eco serving some of the loose); the same
+    trace with eco killed mid-trace (in-flight requests migrated to gold
+    and resumed, nothing lost, every stream bitwise the steady run's or
+    parting at a near tie of the single-lane decode path, each
+    migration's recovery in ticks and wall seconds); both dies failed,
+    requests parked and finished once gold is restored, and the two
+    cluster-wide rejects; one 4x128 prefill under each die's decode unit
+    numerics through K1 (7 * n_layers + 1 launches each), bitwise its
+    plain version; ``tune_cluster`` on the card and on the CPU with
+    identical picks; and both launchers run on the card."""
+    import dataclasses
+    from repro_torch.cluster import latency_stats, replay
+    from repro_torch.models import LM
+    from repro_torch.serve import Request, RequestRejected
+    c, t_phase = CLUSTER, time.perf_counter()
+    model = LM(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    wide = tree_map(lambda t: t.float(), params)
+    out = {}
+
+    # steady: the whole trace
+    router, clock = cluster_router(model, wide, tech)
+    trace = cluster_trace(cfg.vocab_size)
+    check(trace, "the seeded trace is empty")
+    log, _ = timed_steps(router, clock)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = replay(router, trace, clock, tick_s=c["tick"],
+                 dispatch_tokens=c["dispatch_tokens"])
+    wall = time.perf_counter() - t0
+    check(not rep["rejected"] and not rep["expired"],
+          f"steady: {len(rep['rejected'])} rejected, "
+          f"{len(rep['expired'])} expired")
+    reqs, prompts = cluster_served(rep["finished"], trace, "steady")
+    worst, exact, _ = hold_to_apply(model, wide, reqs, prompts,
+                                    "cluster steady")
+    classes = rep["classes"]
+    placed = {cls: {} for cls in set(classes.values())}
+    for r in reqs:
+        by = placed[classes[r.uid]]
+        by[r.routed_unit] = by.get(r.routed_unit, 0) + 1
+    check(set(placed.get("tight_interactive", {})) == {"decode_gold"},
+          f"tight traffic placed {placed}")
+    check(placed.get("loose_bulk", {}).get("decode_eco", 0) > 0,
+          f"eco served none of the loose traffic: {placed}")
+    energy = router.energy_report()
+    n_tok = sum(len(r.output) for r in reqs)
+    steady = {r.uid: list(r.output) for r in reqs}
+    out["steady"] = dict(
+        arrivals=len(trace), classes={k: sum(v.values())
+                                      for k, v in placed.items()},
+        placed=placed, latency=latency_stats(rep["latency_s"],
+                                             rep["ttft_s"]),
+        span_s=rep["span_s"], steps=len(log),
+        j_per_request=energy["total_j"] / len(reqs),
+        j_per_token=energy["j_per_token"], total_j=energy["total_j"],
+        utilization=router.utilization_report(), wall_s=wall,
+        tokens_per_s=n_tok / wall, tokens_checked=n_tok,
+        tokens_at_apply_argmax=exact, worst_shortfall_over_limit=worst)
+
+    # die-kill: the same trace replayed in two parts around eco's kill
+    router, clock = cluster_router(model, wide, tech)
+    trace = cluster_trace(cfg.vocab_size)
+    pre = [a for a in trace if a.at_s < c["kill_at"]]
+    post = [a for a in trace if a.at_s >= c["kill_at"]]
+    watch = {}
+    log, recovered = timed_steps(router, clock, watch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep1 = replay(router, pre, clock, tick_s=c["tick"],
+                  dispatch_tokens=c["dispatch_tokens"],
+                  max_steps=int(c["kill_at"] / c["tick"]))
+    on_eco = router.servers["eco"].load_report()
+    t_kill, wall_kill = clock.t, time.perf_counter()
+    moved = router.fail_chip("eco")
+    check(moved, f"nothing was in flight on eco at the kill: {on_eco}")
+    check(router.migrations == len(moved), f"{router.migrations} "
+          f"migrations for {len(moved)} evacuated requests")
+    watch.update({r.uid: (r, len(r.output)) for r in moved})
+    held = {r.uid: len(r.output) for r in moved}
+    rep2 = replay(router, post, clock, tick_s=c["tick"],
+                  dispatch_tokens=c["dispatch_tokens"],
+                  carryover={a.request.uid: a.at_s for a in pre})
+    wall = time.perf_counter() - t0
+    check(not (rep1["rejected"] or rep2["rejected"] or rep1["expired"]
+               or rep2["expired"]), "die-kill: requests rejected or "
+          "expired")
+    reqs, prompts = cluster_served(rep1["finished"] + rep2["finished"],
+                                   trace, "die-kill")
+    for r in moved:
+        check(r.routed_unit == "decode_gold" and r.requeues >= 1,
+              f"migrated request {r.uid} finished on {r.routed_unit} "
+              f"after {r.requeues} requeues")
+    worst, exact, _ = hold_to_apply(model, wide, reqs, prompts,
+                                    "cluster die-kill")
+    partings = {}
+    for r, prompt in zip(reqs, prompts):
+        base = steady[r.uid]
+        split = next((i for i, (x, y) in enumerate(zip(r.output, base))
+                      if x != y), None)
+        if split is None:
+            continue
+        gap = decode_parting(model, wide, prompt, base, split,
+                             r.output[split], c["max_len"])
+        check(gap <= NEAR_TIE, f"request {r.uid}: the die-kill stream "
+              f"parts from the steady one at token {split}, where the "
+              f"decode path puts the two picks {gap} of max |logit| apart "
+              f"(a near tie is within {NEAR_TIE})")
+        partings[r.uid] = dict(split=split, gap=gap,
+                               migrated=r.uid in held)
+    check(set(recovered) == set(held), f"migrated requests "
+          f"{sorted(set(held) - set(recovered))} never resumed")
+    recovery = {uid: dict(tokens_at_kill=held[uid],
+                          ticks=round((t - t_kill) / c["tick"]),
+                          sim_s=t - t_kill, wall_s=w - wall_kill)
+                for uid, (t, w) in sorted(recovered.items())}
+    energy = router.energy_report()
+    latency = {**rep1["latency_s"], **rep2["latency_s"]}
+    ttft = {**rep1["ttft_s"], **rep2["ttft_s"]}
+    out["die_kill"] = dict(
+        kill_at_s=t_kill, in_flight_on_eco=on_eco,
+        evacuated=sorted(held), migrations=router.migrations,
+        recovery=recovery, partings=partings,
+        bitwise_streams=len(reqs) - len(partings),
+        latency=latency_stats(latency, ttft), steps=len(log),
+        j_per_token=energy["j_per_token"], total_j=energy["total_j"],
+        utilization=router.utilization_report(), wall_s=wall,
+        failed=router.cluster_report()["failed"],
+        tokens_at_apply_argmax=exact, worst_shortfall_over_limit=worst)
+
+    # both dies failed: requests park at the router, gold's restore drains
+    # them; then the two cluster-wide rejects
+    t0 = time.perf_counter()
+    router, clock = cluster_router(model, wide, tech)
+    router.fail_chip("eco")
+    router.fail_chip("gold")
+    parked = [Request(uid=i, prompt=prompts[i],
+                      max_new_tokens=c["parked_tokens"], accuracy_slo=5e-2)
+              for i in range(c["parked"])]
+    targets = [router.submit(r) for r in parked]
+    check(targets == [""] * len(parked) and
+          len(router._parked) == len(parked) and not router.idle(),
+          f"with both dies failed the requests went to {targets}")
+    clock.t += c["tick"]
+    check(router.step() == 0, "a failed die served")
+    router.restore_chip("gold")
+    for _ in range(400):
+        clock.t += c["tick"]
+        router.step(c["dispatch_tokens"])
+        if router.idle():
+            break
+    done = router.drain_finished()
+    check(len(done) == len(parked) and not router._parked and all(
+        r.done and r.routed_unit == "decode_gold" and
+        len(r.output) == c["parked_tokens"] for r in parked),
+        "parked requests did not finish on gold")
+    hold_to_apply(model, wide, parked, prompts[:len(parked)],
+                  "cluster parked")
+    rejects = {}
+    for i, (kw, code) in enumerate(((dict(precision="dp"),
+                                     "unknown_precision"),
+                                    (dict(accuracy_slo=1e-12),
+                                     "accuracy_slo_unmeetable"))):
+        bad = Request(uid=1000 + i, prompt=prompts[0], max_new_tokens=4,
+                      **kw)
+        try:
+            router.submit(bad)
+            fail(f"a request with {kw} was admitted")
+        except RequestRejected as e:
+            check(e.code == code and bad.rejected and
+                  bad in router.rejected, f"{kw} rejected as {e.code}")
+            rejects[code] = e.reason
+    out["park"] = dict(parked=len(parked), finished=len(done),
+                       rejects=rejects, seconds=time.perf_counter() - t0)
+
+    # both launchers on the card, alongside the K1 checks and the tunes
+    # (host-bound, one process each on a card with room for all three)
+    launchers = (Launcher("repro_torch.launch.cluster", "--fail-at",
+                          str(c["kill_at"]), "--fail-die", "eco"),
+                 Launcher("repro_torch.launch.serve", "--chaos", "kill"))
+    try:
+        cluster_checks(cfg, model, wide, router, tech, dev, out)
+        out["launchers"] = finish_launchers(launchers)
+    finally:
+        for launcher in launchers:
+            launcher.close()
+    del model, wide, router
+    release()
+    emit({"phase": "cluster", "arch": cfg.name, "dtype": "float32",
+          "cluster": "eco+gold", **c, "trace": CLUSTER_TRACE,
+          "seconds": time.perf_counter() - t_phase, **out})
+
+
+def finish_launchers(launchers):
+    """Each launcher exited 0 with every request finished: their output
+    lines and wall seconds."""
+    (lines, w_cluster), (lines2, w_serve) = (x.finish() for x in launchers)
+    m = re.search(r"^(\d+)/(\d+) requests finished \((\d+) expired\)",
+                  "\n".join(lines), re.M)
+    check(m is not None and m.group(1) == m.group(2) and m.group(3) == "0",
+          f"launch.cluster: {lines}")
+    m = re.search(r"^chaos=kill: (\d+)/(\d+) requests completed",
+                  "\n".join(lines2), re.M)
+    check(m is not None and m.group(1) == m.group(2),
+          f"launch.serve: {lines2}")
+    return dict(cluster=dict(lines=lines, wall_s=w_cluster),
+                serve=dict(lines=lines2, wall_s=w_serve))
+
+
+def cluster_checks(cfg, model, wide, router, tech, dev, out):
+    """One 4x128 prefill under each die's decode unit numerics through K1
+    against the plain version; ``tune_cluster`` on the card and the
+    CPU."""
+    from repro_torch.cluster import ChipClass, tune_cluster
+    from repro_torch.core import autotune, chip, energy_model, latency_sim
+    from repro_torch.kernels.fused import fused_qmm
+    c = CLUSTER
+    t0 = time.perf_counter()
+    B, S = EMU["batch"], EMU["prompt"]
+    toks = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (B, S)), device=dev)
+    per_fwd = 7 * cfg.n_layers + 1
+    logits, numerics = {}, {}
+    for die, unit, fmt in (("eco", "decode_eco", "fp8_e4m3"),
+                           ("gold", "decode_gold", "fp32")):
+        pol = router.policies[die].numerics_for_phase("decode", fmt=None,
+                                                      emulate=True)
+        check(pol.fmt.name == fmt and pol.emulate,
+              f"{die}: numerics {pol.fmt.name}, expected {fmt}")
+        c0 = fused_qmm.launches
+        routed, _ = model.prefill(wide, toks, policy=pol)
+        torch.cuda.synchronize()
+        launches = fused_qmm.launches - c0
+        check(launches == per_fwd, f"{die} routed prefill: {launches} K1 "
+              f"launches, expected {per_fwd}")
+        check(bool(torch.isfinite(routed).all()), f"{die}: non-finite "
+              "logits")
+        plain = plain_prefill(model, wide, toks, pol)
+        check(torch.equal(routed, plain), f"{die} routed prefill differs "
+              "from the plain K1's")
+        logits[die] = routed
+        numerics[die] = dict(unit=unit, fmt=fmt, style=pol.accum_style,
+                             k1_launches=launches, bitwise_plain=True)
+    gap = float((logits["eco"] - logits["gold"]).abs().max() /
+                logits["gold"].abs().max())
+    out["k1_per_die"] = dict(numerics, eco_vs_gold_rel_gap=gap,
+                             seconds=time.perf_counter() - t0)
+    del logits, routed, plain
+
+    # tune_cluster on the card and on the CPU
+    classes = [ChipClass("bulk", (chip.PhaseSpec(
+                   "train", autotune.GEMM_STREAM),), workload_share=3.0),
+               ChipClass("interactive", (chip.PhaseSpec(
+                   "decode", autotune.DEPENDENT_CHAIN),),
+                   workload_share=1.0)]
+
+    def picks(rc):
+        return rc.counts, [(d.name, [(u.design.name, u.vdd, u.vbb, u.count,
+                                      u.fmt.name if u.fmt else None)
+                                     for u in d.units])
+                           for d in rc.spec.chips]
+
+    tuned, seconds = {}, {}
+    for where in (dev, "cpu"):
+        latency_sim.clear_penalty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tuned[str(where)] = tune_cluster(
+            classes, max_chips=c["tune_max_chips"], params=tech,
+            cache=energy_model.SweepExecutableCache(), device=where)
+        seconds[str(where)] = time.perf_counter() - t0
+    on_card, on_cpu = tuned[str(dev)], tuned["cpu"]
+    check(picks(on_card) == picks(on_cpu), f"tune_cluster: card "
+          f"{picks(on_card)} != CPU {picks(on_cpu)}")
+    bal = [t.report["balanced_throughput_gflops"] for t in (on_card,
+                                                            on_cpu)]
+    check(abs(bal[0] / bal[1] - 1) <= ENERGY_REL, f"tune_cluster balanced "
+          f"throughput: card {bal[0]}, CPU {bal[1]}")
+    out["tune_cluster"] = dict(counts=on_card.counts,
+                               dies=picks(on_card)[1],
+                               balanced_throughput_gflops=bal,
+                               converged=on_card.search.converged,
+                               seconds=seconds)
 
 
 def serve_f32(cfg, params, dev, **kw):
@@ -3452,6 +3930,10 @@ def main():
           lambda: trace_full_width(model, params, tech, dev))
     drive(f"{ARCH} resilience", (),
           lambda: resilience_full_width(cfg, params, tech, dev))
+    # cluster serving: two dies behind the router, a die killed mid-trace,
+    # and each die's unit numerics through K1
+    drive(f"{ARCH} cluster", ("fused_qmm",),
+          lambda: cluster_full_width(cfg, params, tech, dev))
     specs = benchgen_specs()
     machine = calibrate(device=dev)  # launches K2: outside the window
     _, (bench,) = drive(

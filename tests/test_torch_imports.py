@@ -65,7 +65,11 @@ def test_slice_modules_are_scanned():
                 "core/chip.py", "numerics/accuracy.py", "models/moe.py",
                 "faults.py", "telemetry/__init__.py", "telemetry/tracer.py",
                 "telemetry/export.py", "telemetry/profile.py",
-                "serve/__init__.py", "serve/resilience.py"):
+                "serve/__init__.py", "serve/resilience.py",
+                "cluster/__init__.py", "cluster/spec.py",
+                "cluster/loadgen.py", "cluster/router.py",
+                "cluster/tune.py", "launch/__init__.py", "launch/serve.py",
+                "launch/cluster.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -143,6 +147,34 @@ def test_servers_raise_without_cuda(monkeypatch):
         server.run()
         assert req.done and len(req.output) == 2
     assert tracer.check_integrity() == [] and len(tracer.roots()) == 2
+
+
+def test_cluster_and_launchers_raise_without_cuda(monkeypatch):
+    """The cluster's router, its tuner and both launchers run on the card
+    unless the caller asks for the CPU: without CUDA they raise, and
+    nothing falls back to the host."""
+    from repro_torch.cluster import ChipClass, tune_cluster
+    from repro_torch.core import autotune, chip, energy_model
+    from repro_torch.core.fpu_arch import FABRICATED
+    from repro_torch.launch import cluster as launch_cluster
+    from repro_torch.launch import serve as launch_serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = energy_model.TechParams(tuple(
+        s[1] for s in energy_model._PARAM_SPEC))
+    cls = ChipClass("bulk", (chip.PhaseSpec(
+        "train", autotune.GEMM_STREAM, designs=(FABRICATED["sp_fma"],)),))
+    calls = [lambda: launch_serve.main([]),
+             lambda: launch_serve.main(["--chaos", "kill"]),
+             lambda: launch_cluster.main([]),
+             lambda: launch_cluster.main(["--fail-at", "1.0"]),
+             lambda: tune_cluster([cls], params=params, max_chips=1),
+             lambda: tune_cluster([cls], max_chips=1)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    rc = tune_cluster([cls], params=params, max_chips=1, device="cpu",
+                      vdd_grid=np.array([0.8]), vbb_grid=np.array([0.0]))
+    assert rc.counts == {"bulk": 1}
 
 
 def test_dse_entry_points_raise_without_cuda(monkeypatch):

@@ -125,7 +125,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ``python -m repro_torch.launch.cluster --fail-at 2.0 --fail-die eco``
      and ``python -m repro_torch.launch.serve --chaos kill`` run on the
      card, each exiting 0 with every request finished;
-  3f. benchgen on the card: ``calibrate()`` measures the card's rates,
+  3f. training tinyllama-1.1b on the card, counters set to 0 just before
+     and every count 0 just after (no kernel of K1-K6 has a backward, so
+     none lies on this path): (a) ``flash_attention_trainable``'s
+     recompute backward on layer 0's f32 q, k, v (2 x 2048, 32/4 heads)
+     at blocks of 1024 and 256, with a window, kv_len < Sk and
+     q_offset > 0, dq, dk and dv within 1e-5 * max |g| of autograd
+     through a naive f32 attention, both peak memories printed; (b) 40
+     steps at full width and depth (22 layers, bf16, remat) from
+     ``LM.init``, 8 x 512 tokens of the port's data pipeline a step, the
+     launcher's AdamW at lr 1e-3 (3e-3 diverges into NaN at this width),
+     warmup 10: the loss finite and
+     ``grad_norm`` > 0 every step, the mean of the last 5 losses below
+     the first 5's by 0.2; step wall and device ms, idle share, tokens/s,
+     model FLOP/s (8 N T) and peak memory printed; (c) the same batch
+     with ``microbatches=2`` against one batch: the loss within 1e-3,
+     each weight within two bf16 ulps of its size plus twice the lr;
+     (d) 2 layers at full width in float32, two steps on the card and on
+     the CPU from the same state: the loss within rtol 1e-5; from the
+     CPU's state every gradient leaf within 1e-4 * max |g| and AdamW on
+     the same gradients within 1e-3 lr; the weights after two steps
+     within 2.5 of the lr summed; (e) in a child process made deterministic before CUDA
+     starts, 2 layers in bf16 through ``run_with_restarts`` with failures
+     before steps 3 and 6 and a checkpoint every 2: the final params,
+     moments and counters bitwise the uninterrupted run's, each save's
+     and restore's bytes and seconds printed; (f) ``python -m
+     repro_torch.launch.train --arch tinyllama-1.1b --steps 20`` on the
+     card, exit 0 and a falling loss; (g) a control the check must
+     catch: a train step under ``EmulatedPolicy(bf16, fused)`` raising
+     ``NoBackwardError`` on the card;
+  3g. benchgen on the card: ``calibrate()`` measures the card's rates,
      then, counters set to 0 just before and read just after,
      ``validate`` of the default specs and two full-width flash specs
      against those rates, in which K1, K2, K4 and K5 must each launch;
@@ -137,8 +166,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      held to twice the model's own bf16 noise floor measured in the run
      (``prefill`` against ``LM.apply`` at one position; at least 4 * 2**-8,
      the floor itself under 2**-3, of max |logit|), then the same requests
-     on the same weights computed in float32, every token held to
-     4 * 2**-8; in both the server's and ``greedy_decode``'s streams agree
+     on the same weights computed in float32 at 16 of the 64 layers (a
+     cut for the script's time), every token held to 4 * 2**-8; in both the server's and ``greedy_decode``'s streams agree
      up to the first near tie of ``LM.apply``; layer 0's selective-scan
      operands from a 2 x 256 prefill through K6 (``ssm_scan``, held to the
      layer's own chunked scan on the same operands) and through K5
@@ -171,11 +200,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      identical prefills bitwise equal; 113 K1 launches per emulated
      forward; layer 0's MoE on the largest served prefill's input against
      the CPU (picks, keep mask and slots identical, output within
-     4 * 2**-8); last, the bf16 weights widened to float32 leaf by leaf
-     and the no-drop requests served again at full depth with a float32
-     KV cache, every token and greedy_decode's held to 4 * 2**-8 of
-     ``LM.apply`` (the fp8 cache rounds the shapes' last-bit differences
-     to whole fp8 steps, beyond that share at this depth);
+     4 * 2**-8); last, the bf16 weights of the first 8 of the 28 layers
+     (a cut for the script's time) widened to float32 leaf by leaf and
+     the no-drop requests served again with a float32 KV cache, every
+     token and greedy_decode's held to 4 * 2**-8 of ``LM.apply`` (the
+     fp8 cache rounds the shapes' last-bit differences to whole fp8
+     steps, beyond that share at full depth);
   4c. the sliding-window path of mixtral-8x7b at full width, 4 of its 32
      layers (one card holds no more), its 4096-slot ring KV cache, at
      ``capacity_factor = n_experts``: prompts of 700-4200 tokens served
@@ -230,6 +260,7 @@ Every line but the last two is a JSON record or the card's
 is the kernel table ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import gc
 import json
 import re
@@ -1942,16 +1973,17 @@ def plain_prefill(model, params, toks, policy):
 
 class Launcher:
     """``python -m module args`` started from the checkout (on the card:
-    the launchers' default device) with its output in temporary files and
-    its end time taken by a thread; ``finish`` waits, requires exit 0 and
-    returns the output lines and the wall seconds; ``close`` kills it if
-    it still runs and closes its files."""
+    the launchers' default device; ``env``: variables set for it alone)
+    with its output in temporary files and its end time taken by a
+    thread; ``finish`` waits, requires exit 0 and returns the output lines
+    and the wall seconds; ``close`` kills it if it still runs and closes
+    its files."""
 
-    def __init__(self, module, *args):
+    def __init__(self, module, *args, env=None):
         import os
         import tempfile
         import threading
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
             p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
             if p))
         self.what = " ".join((module,) + args)
@@ -2289,15 +2321,527 @@ def cluster_checks(cfg, model, wide, router, tech, dev, out):
                                seconds=seconds)
 
 
-def serve_f32(cfg, params, dev, **kw):
+# ---------------------------------------------------------------------------
+# phase 3f: training tinyllama-1.1b (none of K1-K6 lies on this path)
+# ---------------------------------------------------------------------------
+# 40 steps of 8 x 512 tokens from the port's data pipeline with the train
+# launcher's optimizer (warmup 10, a cosine to 10% at the last step) at lr
+# 1e-3, not the launcher's 3e-3: at full width 3e-3 diverges (the loss
+# climbs from 10.8 to 12.2) until a masked attention score lies more than
+# ~88.7 above its row max, where exp(s - max) * mask, the reference's
+# formula, gives inf * 0 = NaN (step 37 in bf16, step 12 in float32;
+# PERF.md)
+TRAIN = dict(steps=40, seq_len=512, batch=8, lr=1e-3, warmup=10)
+# the loss falls: the mean of the last 5 losses below the mean of the
+# first 5 by this much (the rule of tests/test_models_smoke.py)
+TRAIN_DROP = 0.2
+# the flash backward at layer 0's shape against autograd through a naive
+# f32 attention: (case, keywords, the q rows taken); q_offset's case takes
+# the last 1024 rows against every key
+FLASH_BWD = (("causal, blocks 1024", dict(block_q=1024, block_k=1024), 0),
+             ("causal, blocks 256", dict(block_q=256, block_k=256), 0),
+             ("window 512", dict(window=512, block_q=256, block_k=256), 0),
+             ("kv_len 1500", dict(kv_len=1500, block_q=256, block_k=256), 0),
+             ("q_offset 1024", dict(q_offset=1024, block_q=256,
+                                    block_k=256), 1024))
+# dq, dk and dv within this share of max |g| of the naive attention's (the
+# JAX package's bound for its own recompute backward, tests/test_attention.py)
+FLASH_BWD_REL = 1e-5
+# the card against the CPU, and the restart: tinyllama cut to 2 layers
+# (full width), 2 x 128 tokens a step
+TRAIN_CUT = dict(layers=2, batch=2, seq_len=128)
+# card vs CPU in float32: the loss within this relative gap; from the same
+# state every gradient leaf within GRAD_REL * max |g|, and AdamW on the same
+# gradients moving each weight within UPDATE_LR of the lr of the other
+# side's (the two differ in the global norm's summation order alone);
+# after two steps each on its own side a weight within PARAM_LR of the lr
+# summed: Adam moves a weight by about lr whatever its gradient's size, so
+# a gradient near zero whose sign differs between the sides moves its
+# weight by up to 2 lr the other way, and Adam's step is at most ~1.2 lr
+# at these betas (an H100 reads up to 0.31 against its CPU host)
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+TRAIN_UPDATE_LR = 1e-3
+TRAIN_PARAM_LR = 2.5
+# microbatches=2 against one batch (bf16, full width): the loss within this
+# relative gap; each weight within two bf16 ulps of its size (2**-7 |p|
+# each) plus twice the step's lr: the two f32 updates may round to
+# neighbouring bf16 values, and Adam's step may differ by up to lr where
+# a gradient's sign differs
+TRAIN_MICRO_LOSS_REL = 1e-3
+# the restart: 8 steps with a checkpoint every 2 and failures before steps
+# 3 and 6, in a child process set deterministic before CUDA starts (the
+# embedding's gradient is a scatter-add, atomics without it)
+RESTART = dict(steps=8, every=2, fail_at=(3, 6))
+# the launcher's run on the card (its reduced config, its own flags)
+TRAIN_LAUNCH_STEPS = 20
+
+
+def naive_attention(q, k, v, *, causal=True, window=0, kv_len=None,
+                    q_offset=0, **_):
+    """Dense f32 softmax attention with k and v repeated over each group."""
+    import math
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    kv_len = Sk if kv_len is None else kv_len
+    kr = k.repeat_interleave(Hq // Hkv, dim=2)
+    vr = v.repeat_interleave(Hq // Hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kr) / math.sqrt(D)
+    qp = q_offset + torch.arange(Sq, device=q.device)
+    kp = torch.arange(Sk, device=q.device)
+    mask = (kp[None, :] < kv_len).expand(Sq, Sk)
+    if causal:
+        mask = mask & (kp[None, :] <= qp[:, None])
+    if window:
+        mask = mask & (kp[None, :] > qp[:, None] - window)
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vr)
+
+
+def flash_backward_full_width(model, params, rng):
+    """(a) ``flash_attention_trainable``'s dq, dk and dv on layer 0's f32
+    operands against autograd through ``naive_attention``, each case's
+    peak memory beside the naive one's."""
+    from repro_torch.models.flash_vjp import flash_attention_trainable
+    dev = model.device
+    q0, k0, v0 = (t.float() for t in
+                  attention_layer0_operands(model, params, rng))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cases = []
+    for name, kw, row0 in FLASH_BWD:
+        q = q0[:, row0:]
+        w = torch.randn(q.shape, generator=gen, device=dev)
+        out = {}
+        for label, fn in (("flash", flash_attention_trainable),
+                          ("naive", naive_attention)):
+            qkv = [t.clone().requires_grad_(True) for t in (q, k0, v0)]
+            release()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad((fn(*qkv, **kw) * w).sum(), qkv)
+            torch.cuda.synchronize()
+            out[label] = (grads, time.perf_counter() - t0,
+                          torch.cuda.max_memory_allocated() - base)
+            del qkv
+        rels = []
+        for what, g, ref in zip("qkv", out["flash"][0], out["naive"][0]):
+            check(bool(torch.isfinite(g).all()), f"flash backward {name}: "
+                  f"d{what} not finite")
+            rel = float((g - ref).abs().max() / ref.abs().max())
+            check(rel <= FLASH_BWD_REL, f"flash backward {name}: d{what} "
+                  f"{rel:.3g} of max |g| from the naive attention's")
+            rels.append(rel)
+        cases.append(dict(case=name, q_rows=q.shape[1], rel_err_dqkv=rels,
+                          seconds=out["flash"][1],
+                          naive_seconds=out["naive"][1],
+                          peak_bytes=out["flash"][2],
+                          naive_peak_bytes=out["naive"][2]))
+        del out
+    return dict(q=list(q0.shape), kv=list(k0.shape), dtype="float32",
+                bound=FLASH_BWD_REL, cases=cases)
+
+
+def bits(t):
+    """``t`` viewed as integers of its width: equal views are equal bits."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def grad_leaves(model, params, batch):
+    """Every parameter leaf's gradient of ``model.loss_fn`` on ``batch``,
+    in the tree's leaf order, and the loss."""
+    from repro_torch.train import tree
+    live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    loss, _ = model.loss_fn(tree.unflatten(params, live), batch)
+    return torch.autograd.grad(loss, live), loss.detach()
+
+
+def train_full_width(model, dev, smi):
+    """(b) tinyllama-1.1b at full width and depth (bf16, ``cfg.remat``)
+    trains TRAIN's steps from ``LM.init(SEED)``: the loss finite and
+    falling, ``grad_norm`` > 0 each step; step wall and device ms, the
+    idle share, tokens/s, model FLOP/s and peak memory.  Returns the final
+    state, the step function and the optimizer's config for (c)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import for_arch, make_batch
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import make_train_state, make_train_step
+    cfg = model.cfg
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                           total_steps=TRAIN["steps"])
+    dcfg = for_arch(cfg, seq_len=TRAIN["seq_len"],
+                         global_batch=TRAIN["batch"])
+    release()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model, SEED, opt)
+    step = make_train_step(model, opt)
+    n_params = sum(p.numel() for p in tree.leaves(state.params))
+    losses, norms, walls, device_ms, top = [], [], [], None, []
+    profiled = TRAIN["steps"] // 2
+    for i in range(TRAIN["steps"]):
+        batch = make_batch(dcfg, i, dev)
+        torch.cuda.synchronize()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if i == profiled else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+            walls.append(time.perf_counter() - t0)
+        if i == profiled:
+            kernels = {}  # device-side events only: an op's time is its
+            for e in prof.key_averages():  # kernels'
+                if e.device_type == DeviceType.CUDA:
+                    kernels[e.key] = kernels.get(e.key, 0.0) \
+                        + e.device_time_total / 1e3
+            device_ms = sum(kernels.values())
+            top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        losses.append(loss)
+        norms.append(norm)
+        if not (np.isfinite(loss) and np.isfinite(norm) and norm > 0):
+            emit({"phase": "train", "failed_at_step": i, "losses": losses,
+                  "grad_norms": norms})
+            fail(f"train step {i}: loss {loss}, grad_norm {norm}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first - TRAIN_DROP, f"train: the loss did not fall by "
+          f"{TRAIN_DROP}: first 5 {first:.4f}, last 5 {last:.4f}")
+    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    # the unprofiled steps' median: the profiler adds host time, not
+    # device time, to the step it records
+    wall = float(np.median([w for i, w in enumerate(walls)
+                            if i not in (0, profiled)]))
+    rec = dict(
+        arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+        remat=cfg.remat, parameters=n_params, **TRAIN,
+        losses=losses, grad_norms=norms, first5=first, last5=last,
+        step_wall_ms=wall * 1e3, first_step_wall_ms=walls[0] * 1e3,
+        profiled_step=profiled,
+        profiled_step_wall_ms=walls[profiled] * 1e3,
+        profiled_step_device_ms=device_ms or "not measured",
+        idle_share=(1 - device_ms / (wall * 1e3)) if device_ms
+        else "not measured",
+        top_kernels_ms=[[k[:80], v] for k, v in top] if device_ms else [],
+        tokens_per_s=tokens / wall,
+        model_flops_per_s=8 * n_params * tokens / wall,
+        flops_counted="6 N T + the remat forward's 2 N T, N every "
+                      "parameter (the tied embedding once)",
+        peak_bytes=torch.cuda.max_memory_allocated() - base, card=smi)
+    return state, step, opt, dcfg, rec
+
+
+def train_microbatches(model, state, step, opt, dcfg):
+    """(c) the same batch through ``microbatches=2`` and through one batch
+    from the trained state: the loss within TRAIN_MICRO_LOSS_REL, each
+    weight within one bf16 ulp of its size plus the step's lr."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.train import tree
+    from repro_torch.train.train_loop import make_train_step
+    batch = make_batch(dcfg, TRAIN["steps"], model.device)
+    one, m1 = step(state, batch)
+    two, m2 = make_train_step(model, opt, microbatches=2)(state, batch)
+    l1, l2, lr = float(m1["loss"]), float(m2["loss"]), float(m1["lr"])
+    rel = abs(l1 - l2) / abs(l1)
+    check(rel <= TRAIN_MICRO_LOSS_REL, f"microbatches=2: loss {l2} vs {l1}")
+    check(sorted(m2) == ["grad_norm", "loss", "lr"],
+          f"microbatches=2: metrics {sorted(m2)}")
+    worst = 0.0
+    for a, b in zip(tree.leaves(one.params),
+                    tree.leaves(two.params)):
+        a, b = a.float(), b.float()
+        worst = max(worst, float(((a - b).abs()
+                                  / (2.0 ** -7 * a.abs() + lr)).max()))
+    check(worst <= 2.0, f"microbatches=2: a weight {worst:.3g} x (one bf16 "
+          "ulp + lr) from the one-batch update")
+    return dict(loss=l1, loss_microbatches=l2, loss_rel=rel,
+                grad_norm=float(m1["grad_norm"]),
+                grad_norm_microbatches=float(m2["grad_norm"]), lr=lr,
+                param_gap_over_ulp_plus_lr=worst)
+
+
+def train_card_vs_cpu(cfg, dev):
+    """(d) tinyllama at full width cut to TRAIN_CUT's depth in float32:
+    two steps on the card (``make_train_step``) and on the CPU (its
+    gradients and ``apply_updates``, the step's own two calls) from the
+    same state on the same batches.  Each step from the CPU's state: every
+    gradient leaf, and ``apply_updates`` on the CPU's gradients (the
+    weights within TRAIN_UPDATE_LR of the lr, the moments within
+    TRAIN_GRAD_REL of their max); the card's own steps: the loss, and
+    after two the weights within TRAIN_PARAM_LR of the lr summed."""
+    import dataclasses
+    from repro_torch.data.pipeline import for_arch, make_batch
+    from repro_torch.models import LM
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import (AdamWConfig, apply_updates,
+                                             init_state)
+    from repro_torch.train.train_loop import TrainState, make_train_step
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT["layers"],
+                              dtype="float32")
+    models = {"cpu": LM(cut, device="cpu"), "cuda": LM(cut, device=dev)}
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=4)
+    params = models["cpu"].init(seed=SEED)
+    cpu = TrainState(params, init_state(params, opt),
+                          torch.zeros((), dtype=torch.int32))
+    card = tree.map(lambda t: t.to(dev), cpu)
+    card_step = make_train_step(models["cuda"], opt)
+    dcfg = for_arch(cut, seq_len=TRAIN_CUT["seq_len"],
+                         global_batch=TRAIN_CUT["batch"])
+
+    def gap(on_card, on_cpu, scale):
+        """max |card - cpu| over the leaves, each over ``scale(cpu)``."""
+        return max(float((a.cpu() - b).abs().max() / scale(b))
+                   for a, b in zip(tree.leaves(on_card), tree.leaves(on_cpu)))
+
+    def to(tree_, d):
+        return tree.map(lambda t: t.to(d), tree_)
+
+    rows = []
+    lr_sum = 0.0
+    for i in range(2):
+        batches = {k: make_batch(dcfg, i, mdl.device)
+                   for k, mdl in models.items()}
+        # every gradient leaf, and the update, from the same (the CPU's)
+        # state
+        grads = {k: grad_leaves(mdl, to(cpu.params, mdl.device),
+                                 batches[k])
+                 for k, mdl in models.items()}
+        grad_rel = gap(grads["cuda"][0], grads["cpu"][0],
+                       lambda c: c.abs().max().clamp(min=1e-30))
+        check(grad_rel <= TRAIN_GRAD_REL, f"card vs CPU step {i}: a "
+              f"gradient leaf {grad_rel:.3g} of its max |g| apart")
+        g_cpu = tree.unflatten(cpu.params, list(grads["cpu"][0]))
+        with torch.no_grad():
+            upd = {k: apply_updates(*to((cpu.params, g_cpu, cpu.opt),
+                                        mdl.device), opt)
+                   for k, mdl in models.items()}
+        lr = float(upd["cpu"][2]["lr"])
+        update_gap = gap(upd["cuda"][0], upd["cpu"][0], lambda c: lr)
+        moment_gap = gap(upd["cuda"][1][:2], upd["cpu"][1][:2],
+                         lambda c: c.abs().max().clamp(min=1e-30))
+        check(update_gap <= TRAIN_UPDATE_LR and moment_gap <= TRAIN_GRAD_REL,
+              f"card vs CPU step {i}: apply_updates on the same gradients "
+              f"moves a weight {update_gap:.3g} lr, a moment "
+              f"{moment_gap:.3g} of its max apart")
+        loss_cpu = float(grads["cpu"][1])
+        cpu = TrainState(upd["cpu"][0], upd["cpu"][1], cpu.step + 1)
+        card, mg = card_step(card, batches["cuda"])
+        loss_rel = abs(float(mg["loss"]) - loss_cpu) / abs(loss_cpu)
+        check(loss_rel <= TRAIN_LOSS_REL, f"card vs CPU step {i}: loss "
+              f"{float(mg['loss'])} vs {loss_cpu}")
+        lr_sum += lr
+        param_gap = gap(card.params, cpu.params, lambda c: lr_sum)
+        check(param_gap <= TRAIN_PARAM_LR, f"card vs CPU step {i}: a "
+              f"weight {param_gap:.3g} of the lr summed apart")
+        rows.append(dict(step=i, loss_cpu=loss_cpu,
+                         loss_card=float(mg["loss"]), loss_rel=loss_rel,
+                         grad_norm_cpu=float(upd["cpu"][2]["grad_norm"]),
+                         grad_norm_card=float(mg["grad_norm"]),
+                         grad_leaf_rel=grad_rel,
+                         same_state_update_over_lr=update_gap,
+                         same_state_moment_rel=moment_gap,
+                         param_gap_over_lr_sum=param_gap))
+    return dict(dtype="float32", **TRAIN_CUT,
+                bounds=dict(loss_rel=TRAIN_LOSS_REL,
+                            grad_leaf_rel=TRAIN_GRAD_REL,
+                            update_over_lr=TRAIN_UPDATE_LR,
+                            param_over_lr_sum=TRAIN_PARAM_LR), steps=rows)
+
+
+def train_restart_child():
+    """(e), run as ``python -m chip_smoke --train-restart`` with
+    ``CUBLAS_WORKSPACE_CONFIG`` set and deterministic algorithms on before
+    CUDA starts: tinyllama at TRAIN_CUT's depth in bf16 trained
+    uninterrupted, then through ``run_with_restarts`` with RESTART's
+    failures into a temporary directory; the final params, moments and
+    counters bitwise equal.  Prints one JSON line with each save's and
+    restore's bytes and seconds."""
+    import dataclasses
+    import os
+    import tempfile
+    torch.use_deterministic_algorithms(True)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import LM
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault_tolerance import (failure_schedule,
+                                                   run_with_restarts)
+    from repro_torch.data.pipeline import for_arch, make_batch
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import (make_train_state,
+                                              make_train_step, train_loop)
+    dev = torch.device("cuda")
+    cut = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_CUT["layers"])
+    model = LM(cut, device=dev)
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=2,
+                           total_steps=RESTART["steps"])
+    dcfg = for_arch(cut, seq_len=TRAIN_CUT["seq_len"],
+                         global_batch=TRAIN_CUT["batch"])
+
+    def data(i):
+        return make_batch(dcfg, i, dev)
+
+    def make_state():
+        return make_train_state(model, SEED, opt)
+
+    step = make_train_step(model, opt)
+    t0 = time.perf_counter()
+    ref, _ = train_loop(model, make_state(), step, data,
+                        n_steps=RESTART["steps"])
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    saves, restores = [], []
+
+    class Timed(CheckpointManager):
+        def save(self, s, tree_, extra=None, block=False):
+            t = time.perf_counter()
+            super().save(s, tree_, extra, block=True)
+            d = os.path.join(self.directory, f"step_{s}")
+            saves.append(dict(step=s, seconds=time.perf_counter() - t,
+                              bytes=sum(os.path.getsize(os.path.join(d, f))
+                                        for f in os.listdir(d))))
+
+        def restore(self, like, step=None, shardings=None):
+            t = time.perf_counter()
+            out = super().restore(like, step, shardings)
+            torch.cuda.synchronize()
+            restores.append(dict(step=int(out[1]["step"]),
+                                 seconds=time.perf_counter() - t))
+            return out
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        final, _, restarts = run_with_restarts(
+            model, make_state, step, data, n_steps=RESTART["steps"],
+            manager=Timed(d, keep=2, async_save=False),
+            checkpoint_every=RESTART["every"],
+            failure_hook=failure_schedule(set(RESTART["fail_at"])))
+        torch.cuda.synchronize()
+        restart_s = time.perf_counter() - t0
+    differ = [path for path, a, b in zip(tree.paths(final),
+                                         tree.leaves(ref), tree.leaves(final))
+              if not torch.equal(bits(a), bits(b))]
+    print(json.dumps(dict(restarts=restarts, leaves=len(tree.leaves(ref)),
+                          leaves_differing=differ, saves=saves,
+                          restores=restores, uninterrupted_s=ref_s,
+                          with_restarts_s=restart_s)), flush=True)
+    return 0 if restarts == len(RESTART["fail_at"]) and not differ else 1
+
+
+def train_restart_result(child):
+    """(e)'s gates on the child's JSON line."""
+    lines, wall = child.finish()
+    rec = json.loads(lines[-1])
+    check(rec["restarts"] == len(RESTART["fail_at"]),
+          f"restart: {rec['restarts']} restarts")
+    check(not rec["leaves_differing"], "restart: the final state differs "
+          f"from the uninterrupted run's at {rec['leaves_differing']}")
+    return dict(layers=TRAIN_CUT["layers"], dtype="bfloat16", **RESTART,
+                deterministic="CUBLAS_WORKSPACE_CONFIG=:4096:8, "
+                "torch.use_deterministic_algorithms(True)",
+                bitwise=True, wall_s=wall, **rec)
+
+
+def train_launcher_result(launcher):
+    """(f) ``launch.train`` on the card: exit 0, its rows' loss falling."""
+    import ast
+    lines, wall = launcher.finish()
+    rows = [ast.literal_eval(x) for x in lines if x.startswith("{")]
+    check(len(rows) >= 2 and rows[-1]["loss"] < rows[0]["loss"],
+          f"launch.train: the loss did not fall: {lines}")
+    check(lines[-1].startswith(f"trained {ARCH} (reduced) for "
+                               f"{TRAIN_LAUNCH_STEPS} steps"),
+          f"launch.train: {lines[-1:]}")
+    return dict(lines=lines[-3:], wall_s=wall)
+
+
+def emulated_train_refused(cfg, dev):
+    """(g) a train step of tinyllama at TRAIN_CUT's depth under
+    ``EmulatedPolicy(bf16, fused)`` on the card raises ``NoBackwardError``
+    (K1 has no backward); returning a state fails the phase."""
+    import dataclasses
+    from repro_torch.data.pipeline import for_arch, make_batch
+    from repro_torch.kernels._build import NoBackwardError
+    from repro_torch.models import LM
+    from repro_torch.models.numerics import EmulatedPolicy
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import make_train_state, make_train_step
+    model = LM(dataclasses.replace(cfg, n_layers=TRAIN_CUT["layers"]),
+               device=dev)
+    opt = AdamWConfig(lr=TRAIN["lr"])
+    state = make_train_state(model, SEED, opt)
+    step = make_train_step(model, opt,
+                                policy=EmulatedPolicy("bf16", "fused"))
+    dcfg = for_arch(model.cfg, seq_len=TRAIN_CUT["seq_len"],
+                         global_batch=TRAIN_CUT["batch"])
+    try:
+        step(state, make_batch(dcfg, 0, dev))
+    except NoBackwardError as e:
+        return str(e)[:120]
+    fail("a train step under EmulatedPolicy(bf16, fused) returned a state "
+         "on the card")
+
+
+def train_path(model, params, dev, smi):
+    """Phase 3f: (e) and (f) start as child processes, then (a), (d), (g),
+    (b) and (c) run here; (e) and (f) are read last."""
+    t_phase = time.perf_counter()
+    children = (Launcher("chip_smoke", "--train-restart", env=dict(
+                    CUBLAS_WORKSPACE_CONFIG=":4096:8")),
+                Launcher("repro_torch.launch.train", "--arch", ARCH,
+                         "--steps", str(TRAIN_LAUNCH_STEPS)))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["flash_backward"] = flash_backward_full_width(
+            model, params, np.random.default_rng(SEED + 3))
+        out["flash_backward"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["card_vs_cpu"] = train_card_vs_cpu(model.cfg, dev)
+        out["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+        out["emulated_policy_refused"] = emulated_train_refused(model.cfg,
+                                                                dev)
+        t0 = time.perf_counter()
+        out["restart"] = train_restart_result(children[0])
+        out["launcher"] = train_launcher_result(children[1])
+        out["children_waited_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, step, opt, dcfg, out["full_width"] = train_full_width(
+            model, dev, smi)
+        out["full_width"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["microbatches"] = train_microbatches(model, state, step, opt,
+                                                 dcfg)
+        out["microbatches"]["seconds"] = time.perf_counter() - t0
+        del state
+    finally:
+        for child in children:
+            child.close()
+    release()
+    emit({"phase": "train", "arch": ARCH, "seconds":
+          time.perf_counter() - t_phase, **out})
+
+
+def serve_f32(cfg, params, dev, layers=None, **kw):
     """The served-token check of ``serve_full_width`` (``kw``: its request
     options) on the same model and requests computed in float32 (the bf16
     weights widened, exactly), held to NEAR_TIE itself.  In bf16 the
     model's own rounding noise at this depth is above NEAR_TIE (the bf16
     run measures it), so here the serving, state and chunking logic is all
-    the tight limit can see."""
+    the tight limit can see.  ``layers``: only the first so many layers
+    (a cut of depth, for the script's time)."""
     import dataclasses
     from repro_torch.models import LM
+    if layers:
+        emit({"phase": "init", "arch": cfg.name, "dtype": "float32",
+              "layers": layers, "cut_from_layers": cfg.n_layers})
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        params = dict(params, layers=tree_map(lambda t: t[:layers],
+                                              params["layers"]))
     model = LM(dataclasses.replace(cfg, dtype="float32"), device=dev)
     wide = tree_map(lambda t: t.float(), params)
     rec = serve_full_width(model, wide, np.random.default_rng(SEED + 1),
@@ -2853,6 +3397,11 @@ def profile_decode(model, params, rng):
 HYBRID_ARCH = "zamba2-1.2b"
 MOE_ARCH = "deepseek-moe-16b"
 WINDOW_ARCH = "mixtral-8x7b"
+# the float32 runs of deepseek-moe-16b and falcon-mamba-7b take this many of
+# their 28 and 64 layers (full width), for the script's time: the float32
+# run checks the serving logic, which every layer runs alike
+MOE_F32_LAYERS = 8
+SSM_F32_LAYERS = 16
 # the hybrid's chunked server: the engine rounds the chunk up to the scan's
 # 64-token carry points
 HYBRID_CHUNK = 64
@@ -3158,9 +3707,10 @@ def moe_layer0_vs_cpu(model, params, x):
 
 
 def moe_f32(cfg, box, dev):
-    """The moe phase's served-token check in float32 at full depth, at
-    ``capacity_factor = n_experts``, with a float32 KV cache: every token,
-    and greedy_decode's, within NEAR_TIE of ``LM.apply`` on its prefix.
+    """The moe phase's served-token check in float32 at MOE_F32_LAYERS of
+    the model's depth, at ``capacity_factor = n_experts``, with a float32
+    KV cache: every token, and greedy_decode's, within NEAR_TIE of
+    ``LM.apply`` on its prefix.
     The config's fp8 cache is left out here: it rounds the last-bit
     differences between the server's batched shapes and a one-sequence
     reference to whole fp8 steps (an e4m3 step is 6-12% of a value), and
@@ -3172,9 +3722,12 @@ def moe_f32(cfg, box, dev):
     import dataclasses
     from repro_torch.models import LM
     model = LM(dataclasses.replace(cfg, dtype="float32", kv_cache_dtype=None,
-                                   capacity_factor=float(cfg.n_experts)),
-               device=dev)
+                                   capacity_factor=float(cfg.n_experts),
+                                   n_layers=MOE_F32_LAYERS), device=dev)
     params = box.pop()
+    params["layers"] = tree_map(lambda t: t[:MOE_F32_LAYERS].clone(),
+                                params["layers"])
+    release()
     leaves = []
 
     def collect(tree):
@@ -3191,6 +3744,7 @@ def moe_f32(cfg, box, dev):
         release()
     widened = torch.cuda.max_memory_allocated()
     emit({"phase": "init", "arch": cfg.name, "dtype": "float32",
+          "layers": MOE_F32_LAYERS, "cut_from_layers": cfg.n_layers,
           "device_bytes": torch.cuda.memory_allocated(),
           "peak_bytes_while_widening": widened})
     serve_full_width(model, params, np.random.default_rng(SEED + 1))
@@ -3934,6 +4488,13 @@ def main():
     # and each die's unit numerics through K1
     drive(f"{ARCH} cluster", ("fused_qmm",),
           lambda: cluster_full_width(cfg, params, tech, dev))
+    # training: the flash backward, 40 steps at full width and depth,
+    # microbatches, the card against the CPU, a restart and the launcher;
+    # no kernel of K1-K6 has a backward, so none may launch here
+    train_counts, _ = drive(f"{ARCH} train", (),
+                            lambda: train_path(model, params, dev, smi))
+    check(not any(train_counts.values()),
+          f"the train path launched {train_counts}")
     specs = benchgen_specs()
     machine = calibrate(device=dev)  # launches K2: outside the window
     _, (bench,) = drive(
@@ -3960,7 +4521,7 @@ def main():
         lambda: serve_full_width(smodel, sparams,
                                  np.random.default_rng(SEED + 1),
                                  noise_floor=True),
-        lambda: serve_f32(scfg, sparams, dev),
+        lambda: serve_f32(scfg, sparams, dev, layers=SSM_F32_LAYERS),
         lambda: ssm_kernels_full_width(smodel, sparams, rng))
     errs["fused_qmm"] = max(errs["fused_qmm"],
                             check_ssm_unembed(smodel, sparams, toks, last))
@@ -3996,4 +4557,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(train_restart_child() if sys.argv[1:] == ["--train-restart"]
+             else main())

@@ -11,5 +11,8 @@
     ``csrc/ssm_scan.cu``.
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
-for CUDA tensors, counting launches in ``<wrapper>.launches``.
+for CUDA tensors, counting launches in ``<wrapper>.launches``.  No kernel
+has a backward: on CUDA tensors a wrapper raises
+``_build.NoBackwardError`` when grad mode is on and an input requires
+grad, where autograd would otherwise take the output for a constant.
 """

@@ -32,6 +32,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+class NoBackwardError(RuntimeError):
+    """A CUDA kernel was called where autograd would need its gradient.
+    The kernels have no backward (nor do the JAX package's Pallas kernels
+    they port), and a ``ctypes`` launch leaves no ``grad_fn``, so autograd
+    would silently treat the output as a constant."""
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NoBackwardError`` when grad mode is on and an input of the
+    kernel ``name`` requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NoBackwardError(
+            f"{name}: the CUDA kernel has no backward; an input requires "
+            "grad (training under an emulating numerics policy is not "
+            "differentiable on the card). Run it without grad, or on the "
+            "CPU, whose plain version autograd differentiates")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

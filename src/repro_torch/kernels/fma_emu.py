@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import FloatFormat
-from repro_torch.kernels import fused
+from repro_torch.kernels import _build, fused
 from repro_torch.kernels.ref import fma_emu_matmul_ref
 
 
@@ -31,6 +31,7 @@ def fma_emu_matmul(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
         return fma_emu_matmul_ref(a, b, fmt=fmt, style=style, out_fmt=out_fmt)
     if a.device.type != "cuda":
         raise ValueError(f"fma_emu_matmul runs on cpu or cuda, got {a.device}")
+    _build.refuse_grad("fma_emu_matmul", a, b)
     out = fused.launch(a[None], b, fmt, style, out_fmt, scaled=False)
     fma_emu_matmul.launches += 1
     return out[0]

@@ -305,6 +305,7 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
                              scaled=scaled, bm=TILE, bn=TILE)
     if a.device.type != "cuda":
         raise ValueError(f"fused_qmm runs on cpu or cuda, got {a.device}")
+    _build.refuse_grad("fused_qmm", a, b)
     out = launch(a3, b, fmt, style, out_fmt, scaled)
     fused_qmm.launches += 1
     return out if batched else out[0]
@@ -354,6 +355,7 @@ def ssm_scan_quantized(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
     if a.device.type != "cuda":
         raise ValueError(f"ssm_scan_quantized runs on cpu or cuda, got "
                          f"{a.device}")
+    _build.refuse_grad("ssm_scan_quantized", a, b, c)
     out = _ssm.launch(a, b, c, fmt, out_fmt)
     ssm_scan_quantized.launches += 1
     return out
@@ -632,6 +634,7 @@ def fused_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"fused_flash_attention runs on cpu or cuda, got "
                          f"{q.device}")
+    _build.refuse_grad("fused_flash_attention", q, k, v)
     Sq, Sk = q.shape[1], k.shape[1]
     kw["kv_len"] = Sk if kv_len is None else kv_len
     out = _flash_launch(q, k, v, bq=min(block_q, Sq), bk=min(block_k, Sk),

@@ -38,6 +38,7 @@ def quantize_nd(x: torch.Tensor, *, fmt: FloatFormat) -> torch.Tensor:
         return quantize_ref(x, fmt=fmt)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_nd runs on cpu or cuda, got {x.device}")
+    _build.refuse_grad("quantize_nd", x)
     x = x.to(torch.float32).contiguous()
     out = torch.empty_like(x)
     rc = _entry()(x.data_ptr(), out.data_ptr(), x.numel(), fmt.exp_bits,

@@ -184,6 +184,7 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
         return ssm_scan_ref(a, b, c)
     if a.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cpu or cuda, got {a.device}")
+    _build.refuse_grad("ssm_scan", a, b, c)
     out = launch(a, b, c, None, None)
     ssm_scan.launches += 1
     return out

@@ -1,4 +1,5 @@
 """Command-line launchers of the port (counterpart of ``repro.launch``):
-``python -m repro_torch.launch.serve`` and
-``python -m repro_torch.launch.cluster``.  Each runs on the card unless
+``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.cluster`` and
+``python -m repro_torch.launch.train``.  Each runs on the card unless
 ``--device cpu`` is given."""

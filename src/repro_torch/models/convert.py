@@ -1,4 +1,5 @@
-"""Parameters exported from the JAX package into the port.
+"""Parameters (and a train state) exported from the JAX package into the
+port.
 
 The JAX ``LM.init`` draws with the JAX PRNG, which PyTorch cannot replay, so
 parity tests export the reference's parameter tree (as numpy arrays) and
@@ -122,3 +123,38 @@ def params_from_jax(tree_of_numpy: Dict, cfg: ArchConfig,
     the reference gives it.  Keys and shapes are checked against ``cfg``."""
     return _convert(tree_of_numpy, _expected_shapes(cfg), _DTYPES[cfg.dtype],
                     resolve_device(device))
+
+
+def train_state_from_jax(state_numpy, cfg: ArchConfig, device=None):
+    """A JAX ``TrainState`` (params, AdamState(mu, nu, count, err), step),
+    its leaves as numpy arrays, as the port's ``TrainState`` on ``device``
+    (default CUDA): the params through ``params_from_jax``, the moments
+    and any error-feedback state in float32 with the params' keys and
+    shapes, ``count`` and ``step`` as int32 0-d tensors.  Both packages
+    then start a step from the same state."""
+    from repro_torch.train.optimizer import AdamState
+    from repro_torch.train.train_loop import TrainState
+    dev = resolve_device(device)
+    params_np, opt, step = state_numpy
+    mu, nu, count, err = opt
+    shapes = _expected_shapes(cfg)
+
+    def moments(tree):
+        return _convert(tree, _all_f32(shapes), torch.float32, dev)
+
+    def scalar(x):
+        return torch.tensor(np.asarray(x), dtype=torch.int32, device=dev)
+
+    return TrainState(params_from_jax(params_np, cfg, dev),
+                      AdamState(moments(mu), moments(nu), scalar(count),
+                                moments(err) if err else {}),
+                      scalar(step))
+
+
+def _all_f32(shapes):
+    """``shapes`` with every leaf marked float32."""
+    if isinstance(shapes, dict):
+        return {k: _all_f32(v) for k, v in shapes.items()}
+    if isinstance(shapes[-1], torch.dtype):
+        shapes = shapes[0]
+    return (shapes, torch.float32)

@@ -27,10 +27,12 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import chunk_attention, decode_attention
+from repro_torch.models.attention import (chunk_attention, decode_attention,
+                                          flash_attention)
 from repro_torch.models.flash_vjp import flash_attention_trainable
 from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_rope, dense_init, embed_apply,
@@ -62,6 +64,50 @@ def _layer(tree: Dict, i: int) -> Dict:
     """Layer ``i``'s slice of the stacked parameter tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unstack(tree: Dict, start: int, end: int):
+    """Layers ``start`` to ``end`` of the stacked parameter tree as
+    per-layer trees of views (one ``unbind`` a leaf, whose gradient is one
+    ``stack``, where indexing each layer would add a full-size gradient
+    per layer)."""
+    def split(node):
+        if isinstance(node, dict):
+            return {k: split(v) for k, v in node.items()}
+        return node[start:end].unbind(0)
+
+    def pick(node, i):
+        if isinstance(node, dict):
+            return {k: pick(v, i) for k, v in node.items()}
+        return node[i]
+
+    parts = split(tree)
+    return [pick(parts, i) for i in range(end - start)]
+
+
+def _needs_grad(tree: Dict, x) -> bool:
+    """Autograd records this forward: grad mode is on and the input or a
+    parameter requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    if x.requires_grad:
+        return True
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif node.requires_grad:
+            return True
+    return False
+
+
+def _remat(fn, *args, on: bool):
+    """``fn(*args)``, its activations recomputed in the backward when
+    ``on`` (the JAX package's ``jax.checkpoint`` of each layer)."""
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _emulates(policy) -> bool:
@@ -134,11 +180,20 @@ def _residual_ffn(p, x, attn, cfg: ArchConfig, policy):
     return x + ff, aux
 
 
-def attn_block_apply(p, x, positions, cfg: ArchConfig, *, policy=None):
-    """Full-sequence block.  Returns (out, aux, (k, v))."""
+def attn_block_apply(p, x, positions, cfg: ArchConfig, *, policy=None,
+                     triangle_skip: bool = False):
+    """Full-sequence block.  Returns (out, aux, (k, v)).  With
+    ``triangle_skip`` the attention is the plain blockwise forward with the
+    causal per-block kv extent (autograd through it keeps every block's
+    probabilities), else the recompute-backward ``flash_vjp`` one."""
     h = rmsnorm(p["ln1"], x)
     q, k, v = _qkv(p, h, cfg, positions, policy)
-    attn = flash_attention_trainable(q, k, v, causal=True, window=cfg.window)
+    if triangle_skip:
+        attn = flash_attention(q, k, v, causal=True, window=cfg.window,
+                               triangle_skip=True)
+    else:
+        attn = flash_attention_trainable(q, k, v, causal=True,
+                                         window=cfg.window)
     out, aux = _residual_ffn(p, x, attn, cfg, policy)
     return out, aux, (k, v)
 
@@ -345,8 +400,9 @@ class LM:
 
     def apply(self, params, tokens=None, *, prefix_embeds=None,
               frame_embeds=None, policy=None, collect_kv: bool = False,
-              collect_states: bool = False, logits_last_only: bool = False,
-              last_index=None, moe_stats: bool = False):
+              collect_states: bool = False, triangle_skip: bool = False,
+              logits_last_only: bool = False, last_index=None,
+              moe_stats: bool = False):
         """Full-sequence forward over ``tokens`` (B, S), or over
         ``frame_embeds`` (B, S, d) (audio), with ``prefix_embeds`` (B, P, d)
         in front (vlm; their positions come first and are unembedded too).
@@ -363,6 +419,10 @@ class LM:
 
         logits_last_only: unembed only the final position; last_index: (B,)
         per-sample position to unembed instead (bucket-padded prefill).
+        triangle_skip: the attention blocks visit only the kv blocks the
+        causal mask reaches (``attention.flash_attention``).  When autograd
+        records the forward and ``cfg.remat`` is set, each layer's
+        activations are recomputed in the backward.
         Under a policy, only the attention projections, the dense MLPs and
         the unembed are emulated: the ssm family's only policy-routed
         matmul is the unembed, the moe family's experts and router take
@@ -370,7 +430,7 @@ class LM:
         x = self._embed_inputs(params, tokens, prefix_embeds, frame_embeds)
         B = x.shape[0]
         x, aux, kv, states = self._stack(params, x, policy, collect_kv,
-                                         collect_states)
+                                         collect_states, triangle_skip)
         if not moe_stats:
             aux = aux["aux_loss"]
         x = rmsnorm(params["final_norm"], x)
@@ -383,7 +443,7 @@ class LM:
             + ((states,) if collect_states else ())
 
     def _stack(self, params, x, policy, collect_kv: bool,
-               collect_states: bool):
+               collect_states: bool, triangle_skip: bool = False):
         """The layers over the embedded x.  Returns (x, aux, kv or None,
         states or None); aux: the summed ``aux_loss`` and, for the moe
         family, each layer's ``dropped_frac`` stacked."""
@@ -391,11 +451,14 @@ class LM:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux, ks, vs, states = 0.0, [], [], None
         dropped = []
+        remat = cfg.remat and _needs_grad(params, x)
         if cfg.family in _ATTN_FAMILIES:
-            for i in range(cfg.n_layers):
-                x, a, (k, v) = attn_block_apply(
-                    _layer(params["layers"], i), x, positions, cfg,
-                    policy=policy)
+            def block(lp, x):
+                return attn_block_apply(lp, x, positions, cfg, policy=policy,
+                                        triangle_skip=triangle_skip)
+
+            for lp in _unstack(params["layers"], 0, cfg.n_layers):
+                x, a, (k, v) = _remat(block, lp, x, on=remat)
                 aux = aux + a["aux_loss"]
                 if "dropped_frac" in a:
                     dropped.append(a["dropped_frac"])
@@ -417,7 +480,7 @@ class LM:
                 if shared:
                     x, _, (k, v) = attn_block_apply(
                         params["shared_attn"], x, positions, cfg,
-                        policy=policy)
+                        policy=policy, triangle_skip=triangle_skip)
                     if collect_kv:
                         ks.append(k)
                         vs.append(v)
@@ -441,17 +504,51 @@ class LM:
         None)."""
         convs, hs = [], []
         keep = collect or states is not None
-        for i in range(start, self.cfg.n_layers if end is None else end):
+        cfg = self.cfg
+        end = cfg.n_layers if end is None else end
+        remat = cfg.remat and not keep and _needs_grad(layers, x)
+
+        def block(lp, x):
+            return ssm_block_apply(lp, x, cfg)
+
+        for i, lp in enumerate(_unstack(layers, start, end), start):
+            if not keep:
+                x = _remat(block, lp, x, on=remat)
+                continue
             st = None if states is None else (states[0][i], states[1][i])
-            out = ssm_block_apply(_layer(layers, i), x, self.cfg, state=st,
-                                  return_state=keep)
-            if keep:
-                x, (conv, h) = out
-                convs.append(conv)
-                hs.append(h)
-            else:
-                x = out
+            x, (conv, h) = ssm_block_apply(lp, x, cfg, state=st,
+                                           return_state=True)
+            convs.append(conv)
+            hs.append(h)
         return x, ((torch.stack(convs), torch.stack(hs)) if keep else None)
+
+    # --------------------------------------------------------- loss --------
+    def loss_fn(self, params, batch, *, policy=None):
+        """batch: ``labels`` (B, S) with ``tokens`` (B, S), or
+        ``frame_embeds`` (audio), and any ``prefix_embeds`` (vlm), whose
+        positions are not scored.  Labels < 0 are masked.  Returns (loss,
+        metrics): the mean cross-entropy over the scored tokens, plus the
+        z-loss 1e-4 * mean(logsumexp^2 * mask), plus 0.01 * the MoE
+        load-balance loss; metrics ``ce``, ``z_loss``, ``aux_loss`` and
+        ``tokens`` (the scored count, at least 1), f32 tensors."""
+        logits, aux = self.apply(
+            params, batch.get("tokens"),
+            prefix_embeds=batch.get("prefix_embeds"),
+            frame_embeds=batch.get("frame_embeds"), policy=policy)
+        labels = batch["labels"]
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, logits.shape[1] - labels.shape[1]:]
+        mask = (labels >= 0).to(torch.float32)
+        safe = labels.clamp(min=0)
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = -(ll * mask).sum() / denom
+        zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2 * mask) * 1e-4
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
+        loss = ce + zl + 0.01 * aux
+        return loss, {"ce": ce, "z_loss": zl, "aux_loss": aux,
+                      "tokens": denom}
 
     def _decode_states(self, params, tokens, policy, states,
                        prefix_embeds=None, frame_embeds=None):

@@ -123,11 +123,14 @@ def route(router: torch.Tensor, xf: torch.Tensor, *, top_k: int,
 
 def _expert_ffn(p, xbuf):
     """xbuf: (E, C, d) -> (E, C, d), swiglu per expert (silu in float32,
-    rounded back before the product with u); at most two (E, C, f)
-    buffers are live at once."""
+    rounded back before the product with u).  Without autograd the
+    product is taken in place, so at most two (E, C, f) buffers are live
+    at once; under autograd an in-place product would save a copy of h for
+    u's gradient, so it is taken out of place (the same numbers)."""
     h = F.silu(torch.bmm(xbuf, p["w_gate"]).to(torch.float32)) \
         .to(xbuf.dtype)
-    h.mul_(torch.bmm(xbuf, p["w_up"]))
+    u = torch.bmm(xbuf, p["w_up"])
+    h = h * u if torch.is_grad_enabled() and u.requires_grad else h.mul_(u)
     return torch.bmm(h, p["w_down"])
 
 

@@ -715,3 +715,60 @@ def test_emulated_vlm_with_prefix_on_card_matches_cpu(card):
                            prefix_embeds=prefix.to(card), policy=pol)
     assert int(gc_.length) == int(wc.length) == 24 + cfg.n_prefix_tokens
     assert (got.cpu() - want).abs().max() <= 4 * 2.0 ** -8 * want.abs().max()
+
+
+def test_kernels_refuse_grad_and_serve_without_it(card):
+    """No kernel has a backward, and a ``ctypes`` launch leaves no
+    ``grad_fn``: with grad on and an input that requires it, every wrapper
+    raises ``NoBackwardError`` before launching, so a train step under an
+    emulating policy fails on the card where it would otherwise get zero
+    gradients.  Without grad the same calls launch."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import for_arch, make_batch
+    from repro_torch.kernels._build import NoBackwardError
+    from repro_torch.models import LM
+    from repro_torch.models.numerics import EmulatedPolicy
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import make_train_state, make_train_step
+    bf16 = tf.get_format("bf16")
+    g = torch.Generator(device=card)
+    g.manual_seed(0)
+    a = torch.randn((4, 64), generator=g, device=card)
+    b = torch.randn((64, 32), generator=g, device=card)
+    x = torch.randn((1, 16, 2, 16), generator=g, device=card)
+    # the scan's wrappers take S in whole 64-step chunks, D in 256-row blocks
+    sa = torch.rand((1, 64, 256, 8), generator=g, device=card) * 0.5 + 0.5
+    sc = torch.randn((1, 64, 8), generator=g, device=card)
+    # (wrapper, a call on its first operand, that operand)
+    cases = [(fused_qmm, lambda t: fused_qmm(t, b, fmt=bf16), a),
+             (fma_emu_matmul, lambda t: fma_emu_matmul(t, b, fmt=bf16), a),
+             (quantize_nd, lambda t: quantize_nd(t, fmt=bf16), a),
+             (fused_flash_attention,
+              lambda t: fused_flash_attention(t, x, x, fmt=bf16), x),
+             (ssm_scan, lambda t: ssm_scan(t, sa, sc), sa),
+             (ssm_scan_quantized,
+              lambda t: ssm_scan_quantized(t, sa, sc, fmt=bf16), sa)]
+    for wrapper, call, first in cases:
+        live = first.clone().requires_grad_(True)
+        before = wrapper.launches
+        with pytest.raises(NoBackwardError, match=wrapper.__name__):
+            call(live)
+        assert wrapper.launches == before, wrapper.__name__
+        with torch.no_grad():
+            call(live)
+        assert wrapper.launches == before + 1, wrapper.__name__
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              n_layers=1)
+    model = LM(cfg, device=card)
+    opt = AdamWConfig()
+    batch = make_batch(for_arch(cfg, seq_len=16, global_batch=2), 0,
+                       device=card)
+    state = make_train_state(model, 0, opt)
+    step = make_train_step(model, opt, policy=EmulatedPolicy("bf16", "fused"))
+    with pytest.raises(NoBackwardError, match="fused_qmm"):
+        step(state, batch)
+    # the same model trains without a policy
+    state, metrics = make_train_step(model, opt)(state, batch)
+    assert float(metrics["grad_norm"]) > 0

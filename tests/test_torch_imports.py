@@ -69,7 +69,11 @@ def test_slice_modules_are_scanned():
                 "cluster/__init__.py", "cluster/spec.py",
                 "cluster/loadgen.py", "cluster/router.py",
                 "cluster/tune.py", "launch/__init__.py", "launch/serve.py",
-                "launch/cluster.py"):
+                "launch/cluster.py", "train/__init__.py",
+                "train/optimizer.py", "train/train_loop.py",
+                "train/checkpoint.py", "train/fault_tolerance.py",
+                "train/tree.py", "data/__init__.py", "data/pipeline.py",
+                "launch/train.py", "models/flash_vjp.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -175,6 +179,44 @@ def test_cluster_and_launchers_raise_without_cuda(monkeypatch):
     rc = tune_cluster([cls], params=params, max_chips=1, device="cpu",
                       vdd_grid=np.array([0.8]), vbb_grid=np.array([0.0]))
     assert rc.counts == {"bulk": 1}
+
+
+def test_train_entry_points_raise_without_cuda(monkeypatch):
+    """The training path runs on the card unless the caller asks for the
+    CPU: the model, the batches, a state loaded from the JAX package and
+    the launcher raise without CUDA; with ``device="cpu"`` a step runs."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LM
+    from repro_torch.models.convert import train_state_from_jax
+    from repro_torch.train import optimizer, train_loop
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tbase.get_config("tinyllama-1.1b").reduced()
+    dcfg = pipeline.for_arch(cfg, seq_len=8, global_batch=2)
+    calls = [lambda: pipeline.make_batch(dcfg, 0),
+             lambda: pipeline.data_iterator(dcfg),
+             lambda: train_state_from_jax(({}, ({}, {}, 0, {}), 0), cfg),
+             lambda: launch_train.main([])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    model = LM(cfg, device="cpu")
+    opt = optimizer.AdamWConfig()
+    state = train_loop.make_train_state(model, 0, opt)
+    state, metrics = train_loop.make_train_step(model, opt)(
+        state, pipeline.make_batch(dcfg, 0, device="cpu"))
+    assert int(state.step) == 1 and float(metrics["grad_norm"]) > 0
+
+
+def test_refuse_grad_names_the_kernel():
+    """The guard the CUDA wrappers call before a launch: it raises only
+    when grad mode is on and an input requires grad."""
+    x = torch.ones(2, requires_grad=True)
+    with pytest.raises(_build.NoBackwardError, match="fused_qmm"):
+        _build.refuse_grad("fused_qmm", torch.ones(2), x)
+    _build.refuse_grad("fused_qmm", torch.ones(2), x.detach())
+    with torch.no_grad():
+        _build.refuse_grad("fused_qmm", x)
 
 
 def test_dse_entry_points_raise_without_cuda(monkeypatch):

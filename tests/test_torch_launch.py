@@ -1,6 +1,6 @@
 """The port's launchers against the JAX package's: ``launch.serve`` (plain,
-``--chaos kill``, ``--chaos corrupt``) and ``launch.cluster`` (plain,
-``--fail-at``, ``--trace-out x.jsonl``), on the CPU.
+``--chaos kill``, ``--chaos corrupt``), ``launch.cluster`` (plain,
+``--fail-at``, ``--trace-out x.jsonl``) and ``launch.train``, on the CPU.
 
 Each launcher builds the reduced config with its package's own random
 weights, so the tokens differ; with no stop token the schedule does not
@@ -18,7 +18,14 @@ against each package) and pickle or return them.  Tolerances:
 
 The JSONL trace each package writes loads with the port's ``load_jsonl``
 and the two give the same spans (energies at rel 1e-9).
+
+``launch.train`` trains each package's own random weights, so only the
+printed rows' structure is compared: the same keys in the same order, the
+same steps, ``tokens`` and ``lr``, finite losses.
 """
+import ast
+import contextlib
+import io
 import math
 import os
 import pickle
@@ -29,6 +36,7 @@ import pytest
 
 from repro_torch.launch import cluster as tcluster_launch
 from repro_torch.launch import serve as tserve_launch
+from repro_torch.launch import train as ttrain_launch
 from repro_torch.telemetry import load_jsonl
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -282,3 +290,32 @@ def test_cluster_trace_loads_with_port_loader(port, ref, workdir):
     arrivals = [e for e in traces["port"].system_events
                 if e[0] == "arrival"]
     assert len(arrivals) == sum(r["submitted"] for r in got["replays"])
+
+
+TRAIN_ARGV = ["--steps", "20", "--seq-len", "32", "--batch", "4"]
+
+
+def test_train_launcher_rows_match_jax(tmp_path):
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "repro.launch.train"]
+                          + TRAIN_ARGV, capture_output=True, text=True,
+                          env=env, cwd=tmp_path, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    want = proc.stdout.strip().splitlines()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ttrain_launch.main(TRAIN_ARGV + [
+            "--device", "cpu", "--ckpt-dir", str(tmp_path / "ck"),
+            "--ckpt-every", "10"])
+    got = buf.getvalue().strip().splitlines()
+    assert len(got) == len(want) == 3 and got[-1] == want[-1]
+    for g, w in zip(got[:-1], want[:-1]):
+        g, w = ast.literal_eval(g), ast.literal_eval(w)
+        assert list(g) == list(w)
+        for k in ("step", "tokens", "lr", "aux_loss"):
+            assert g[k] == w[k], k
+        assert math.isfinite(g["loss"]) and g["grad_norm"] > 0
+    assert sorted(os.listdir(tmp_path / "ck")) == ["step_10", "step_20"]
+    with pytest.raises(NotImplementedError, match="12c"):
+        ttrain_launch.main(["--devices", "4", "--device", "cpu"])

@@ -160,6 +160,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      against those rates, in which K1, K2, K4 and K5 must each launch;
      then one run of every spec, whose output must be finite, and every
      row printed beside ``paper_machine()``'s prediction;
+  3h. (run between 3f and 3g) distribution on the card, as a world of
+     one NCCL rank (file store in a temporary directory) with a (data=1,
+     model=1) mesh, counters set to 0 just before: (a) one sharded train step of tinyllama-1.1b
+     at full width and depth (bf16, remat) from a fresh state laid out
+     by ``param_specs`` (DTensors), 8 x 512 tokens, and a second one
+     profiled: loss finite, ``grad_norm`` > 0; step wall and device ms,
+     idle share and peak bytes printed; (b) 2 full-width layers in
+     float32, one step sharded and one unsharded from the same state:
+     the loss within 1e-4 relative, every weight within 1e-4; (c)
+     deepseek-moe-16b's layer-0 MoE at full width on 2 x 512 tokens at
+     ``capacity_factor = n_experts``: ``moe_apply_distributed`` within
+     1e-5 of max |out| of ``moe_apply`` in float32, both timed in bf16
+     (their gap printed, not gated); (d) ``pipeline_forward`` with one
+     stage bitwise the sequential result; (e) (b)'s sharded state saved
+     from the mesh and restored with ``shardings=``, every leaf bitwise
+     with its placements; (f) the bf16 ``fused`` policy matmul of
+     DTensor operands, K1 launched once on the replicated operands,
+     bitwise the unsharded K1 (the only launch of K1-K6 in the phase),
+     and ``fused_qmm`` refusing a DTensor; the process group is then
+     destroyed; (g) ``python -m repro_torch.launch.train --devices 1
+     --steps 10`` on the card (its own world of one rank, run beside
+     (b)-(f); (a) and (c)'s times are taken after it ends), exit 0 and
+     its loss below a uniform prediction's;
   4. the ssm path at the full width and depth of falcon-mamba-7b
      (tinyllama freed first), launch counters set to 0 just before:
      ``BatchedServer`` and ``greedy_decode`` as in 3 in bf16, every token
@@ -187,10 +210,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      gap between one lane and the server's batch), a server prefilling in
      64-token chunks (its parting from the monolithic streams judged the
      same way, the chunked prefill's own gap added), the same requests in
-     float32 (4 * 2**-8), one 4x128 prefill and 4 decode steps under
-     EmulatedPolicy(bf16, fused) with 37 K1 launches per forward (six
-     shared-block projections per application, six applications, the
-     unembed), and a profile of one decode step;
+     float32 at 12 of the 38 layers (a cut for the script's time, two
+     shared-block applications kept; 4 * 2**-8), one 4x128 prefill and 4
+     decode steps under EmulatedPolicy(bf16, fused) with 37 K1 launches
+     per forward (six shared-block projections per application, six
+     applications, the unembed), and a profile of one decode step;
   4b. the MoE path at the full width and depth of deepseek-moe-16b (fp8 KV
      cache): served at ``capacity_factor = n_experts`` (nothing drops) in
      bf16 (timed, not held); the same requests at the config's 1.25 with
@@ -2826,6 +2850,361 @@ def train_path(model, params, dev, smi):
           time.perf_counter() - t_phase, **out})
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: distribution on a world of one NCCL rank
+# ---------------------------------------------------------------------------
+DIST_CUT = dict(layers=2, batch=2, seq_len=128)
+# (b)'s contract, the JAX package's sharded-vs-unsharded test's: the loss
+# within DIST_REL relative, every weight within DIST_REL
+DIST_REL = 1e-4
+DIST_MOE = dict(batch=2, seq_len=512)
+# (c): the distributed MoE against moe_apply in float32, of max |out|
+DIST_MOE_REL = 1e-5
+DIST_PIPE = dict(n_micro=8, mb=2)
+DIST_LAUNCH_STEPS = 10
+# (f): tinyllama's layer-0 q projection of 4 x 128 tokens
+DIST_K1 = dict(batch=4, prompt=128)
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """A process group of one NCCL rank (this process, the card) through
+    a file store in a temporary directory, torn down on leaving."""
+    import os
+    import tempfile
+    from datetime import timedelta
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            tmp, "store"), rank=0, world_size=1,
+            timeout=timedelta(seconds=120), device_id=torch.device("cuda", 0))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def dist_k1_operands(params, dev):
+    """(f)'s operands: normal bf16 activations (DIST_K1 x d_model) and
+    layer 0's wq; and the unsharded K1 result (``policy_matmul`` on the
+    plain tensors), taken outside the launch window."""
+    from repro_torch.models.numerics import EmulatedPolicy
+    from repro_torch.numerics.emulate import policy_matmul
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    w = params["layers"]["wq"][0]
+    x = torch.randn((DIST_K1["batch"], DIST_K1["prompt"], w.shape[0]),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    return x, w, policy_matmul(x, w, EmulatedPolicy("bf16", "fused"))
+
+
+def dist_train_full_width(model, dev, smi, ctx):
+    """(a) one sharded train step of tinyllama-1.1b at full width and depth
+    (bf16, remat) from a fresh state laid out by ``param_specs``, the
+    train phase's batch shape, and a second one timed and profiled (the
+    card's activity only: DTensor's host dispatch makes a CPU trace cost
+    seconds to read): the loss finite and ``grad_norm`` > 0; step wall and
+    device ms, the idle share, peak bytes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import for_arch, make_batch
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import make_train_state, make_train_step
+    cfg = model.cfg
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                      total_steps=TRAIN["steps"])
+    dcfg = for_arch(cfg, seq_len=TRAIN["seq_len"],
+                    global_batch=TRAIN["batch"])
+    release()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with sh.use_mesh(ctx):
+        state = make_train_state(model, SEED, opt)
+        specs = sh.param_specs(state, cfg.n_experts, ctx)
+        state = sh.distribute_tree(state, specs, ctx)
+        step = make_train_step(model, opt, grad_shardings=sh.named_shardings(
+            specs.params, ctx))
+        walls, losses, norms, device_ms = [], [], [], None
+        for i in range(2):
+            batch = make_batch(dcfg, i, dev)
+            torch.cuda.synchronize()
+            with (profile(activities=[ProfilerActivity.CUDA])
+                  if i == 1 else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+                walls.append(time.perf_counter() - t0)
+            check(np.isfinite(losses[-1]) and np.isfinite(norms[-1])
+                  and norms[-1] > 0, f"sharded step {i}: loss {losses[-1]}, "
+                  f"grad_norm {norms[-1]}")
+        kernels = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                kernels[e.key] = kernels.get(e.key, 0.0) \
+                    + e.device_time_total / 1e3
+        device_ms = sum(kernels.values())
+        placements = sorted({str(tuple(p.placements))
+                             for p in tree.leaves(state.params)})
+    del state
+    return dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+                remat=cfg.remat, mesh=dict(ctx.axes), batch=TRAIN["batch"],
+                seq_len=TRAIN["seq_len"], losses=losses, grad_norms=norms,
+                first_step_wall_ms=walls[0] * 1e3,
+                step_wall_ms=walls[1] * 1e3,
+                step_device_ms=device_ms or "not measured",
+                idle_share=(1 - device_ms / (walls[1] * 1e3)) if device_ms
+                else "not measured",
+                top_kernels_ms=[[k[:80], v] for k, v in sorted(
+                    kernels.items(), key=lambda kv: -kv[1])[:6]],
+                peak_bytes=torch.cuda.max_memory_allocated() - base,
+                param_placements=placements, card=smi)
+
+
+def dist_cut_vs_unsharded(cfg, dev, ctx):
+    """(b) tinyllama at full width cut to DIST_CUT's depth in float32: one
+    step sharded and one unsharded from the same state on the same batch,
+    the loss within DIST_REL relative and every weight within DIST_REL.
+    Returns the record and the sharded state and its specs for (e)."""
+    import dataclasses
+    from repro_torch.data.pipeline import for_arch, make_batch
+    from repro_torch.models import LM
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import make_train_state, make_train_step
+    cut = dataclasses.replace(cfg, n_layers=DIST_CUT["layers"],
+                              dtype="float32")
+    model = LM(cut, device=dev)
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=4)
+    batch = make_batch(for_arch(cut, seq_len=DIST_CUT["seq_len"],
+                                global_batch=DIST_CUT["batch"]), 0, dev)
+    state = make_train_state(model, SEED, opt)
+    plain, pm = make_train_step(model, opt)(state, batch)
+    with sh.use_mesh(ctx):
+        specs = sh.param_specs(state, cut.n_experts, ctx)
+        sharded, sm = make_train_step(
+            model, opt, grad_shardings=sh.named_shardings(
+                specs.params, ctx))(sh.distribute_tree(state, specs, ctx),
+                                    batch)
+        gap = max(float((sh.full(a) - b).abs().max()) for a, b in
+                  zip(tree.leaves(sharded.params), tree.leaves(plain.params)))
+    loss_rel = abs(float(sm["loss"]) - float(pm["loss"])) \
+        / abs(float(pm["loss"]))
+    check(loss_rel <= DIST_REL and gap <= DIST_REL, f"sharded vs unsharded "
+          f"step: loss rel {loss_rel:.3g}, a weight {gap:.3g} apart")
+    return dict(dtype="float32", **DIST_CUT, loss=float(pm["loss"]),
+                loss_sharded=float(sm["loss"]), loss_rel=loss_rel,
+                grad_norm=float(pm["grad_norm"]),
+                grad_norm_sharded=float(sm["grad_norm"]),
+                max_weight_gap=gap, bound=DIST_REL), sharded, specs
+
+
+def dist_checkpoint(state, specs, ctx):
+    """(e) the sharded 2-layer state saved from the mesh and restored with
+    ``shardings=``: every leaf bitwise and with its placements."""
+    import tempfile
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import tree
+    from repro_torch.train.checkpoint import CheckpointManager
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=1, async_save=False)
+        t0 = time.perf_counter()
+        mgr.save(1, state, block=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = mgr.restore(state, shardings=sh.named_shardings(specs, ctx))
+        restore_s = time.perf_counter() - t0
+    n_bytes, differing = 0, []
+    for i, (a, b) in enumerate(zip(tree.leaves(state), tree.leaves(back))):
+        laid_out = sh.is_dtensor(b) and tuple(b.placements) == tuple(
+            a.placements)
+        a, b = sh.full(a), sh.full(b)
+        n_bytes += a.numel() * a.element_size()
+        if not (laid_out and a.dtype == b.dtype
+                and torch.equal(bits(a), bits(b))):
+            differing.append(i)
+    check(not differing, f"restore with shardings: leaves {differing} "
+          "differ from the saved state")
+    return dict(leaves=len(tree.leaves(state)), bytes=n_bytes, bitwise=True,
+                save_s=save_s, restore_s=restore_s)
+
+
+def dist_moe_full_width(dev, ctx, smi, timed):
+    """(c) deepseek-moe-16b's layer-0 MoE at full width (64 experts, top 6,
+    2 shared, d 2048) on DIST_MOE tokens, at ``capacity_factor =
+    n_experts``: ``moe_apply_distributed`` against ``moe_apply`` in
+    float32 within DIST_MOE_REL of max |out|; with ``timed``, both in bf16
+    timed and their gap printed, not gated (a random router turns
+    last-bit differences into other experts, ROADMAP 3)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.moe import moe_apply, moe_init
+    from repro_torch.models.moe_sharded import moe_apply_distributed
+    from repro_torch.parallel import sharding as sh
+    mcfg = get_config(MOE_ARCH)
+    kw = dict(top_k=mcfg.experts_per_token,
+              capacity_factor=float(mcfg.n_experts))
+    dtype = torch.bfloat16 if timed else torch.float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    p = moe_init(gen, mcfg.d_model, n_experts=mcfg.n_experts,
+                 moe_d_ff=mcfg.moe_d_ff, n_shared=mcfg.n_shared_experts,
+                 dtype=dtype)
+    x = torch.randn((DIST_MOE["batch"], DIST_MOE["seq_len"], mcfg.d_model),
+                    generator=gen, device=dev).to(dtype)
+    with torch.no_grad(), sh.use_mesh(ctx):
+        def dist_fn():
+            return moe_apply_distributed(p, x, ctx=ctx, **kw)
+
+        got, aux = dist_fn()
+        got = sh.full(got)
+        want, want_aux = moe_apply(p, x, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        rec = dict(arch=mcfg.name, layer=0, **DIST_MOE, **kw,
+                   dtype=str(dtype).removeprefix("torch."),
+                   max_abs_err=err, max_abs_out=scale,
+                   dropped=float(sh.full(aux["dropped_frac"])),
+                   aux_loss=float(sh.full(aux["aux_loss"])),
+                   aux_loss_moe_apply=float(want_aux["aux_loss"]))
+        if timed:
+            flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+            rec["ms"] = time_ms(dist_fn, flush, reps=5, warm=1)
+            rec["moe_apply_ms"] = time_ms(lambda: moe_apply(p, x, **kw),
+                                          flush, reps=5, warm=1)
+            rec["card"] = smi
+        else:
+            check(err <= DIST_MOE_REL * scale, f"distributed MoE vs "
+                  f"moe_apply in float32: {err} > {DIST_MOE_REL} x {scale}")
+            rec["bound"] = DIST_MOE_REL * scale
+    return rec
+
+
+def dist_pipeline(dev):
+    """(d) ``pipeline_forward`` with one stage on a ('pod',) mesh of the
+    one rank: tanh(h @ W) over DIST_PIPE's microbatches of d_model 2048,
+    bitwise the same function applied microbatch by microbatch."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.parallel.pipeline import pipeline_forward
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("pod",))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    d = 2048
+    w = torch.randn((1, d, d), generator=gen, device=dev) * d ** -0.5
+    x = torch.randn((DIST_PIPE["n_micro"], DIST_PIPE["mb"], d),
+                    generator=gen, device=dev)
+
+    def stage(wt, h):
+        return torch.tanh(h @ wt)
+
+    got = pipeline_forward(stage, 1, mesh, axis="pod")(w, x)
+    want = torch.stack([stage(w[0], x[m]) for m in range(x.shape[0])])
+    check(torch.equal(bits(got), bits(want)), "pipeline_forward with one "
+          "stage differs from the sequential result")
+    return dict(stages=1, d=d, **DIST_PIPE, bitwise=True)
+
+
+def dist_k1(x, w, ref, ctx):
+    """(f) the bf16 ``fused`` policy matmul of (a)'s operands as DTensors
+    on the mesh (x sharded over the batch and its K over 'model', w by
+    ('fsdp', 'tensor')): redistributed to ``Replicate``, K1 launched once
+    on the full operands, bitwise the unsharded K1; and the K1 wrapper
+    handed the DTensors directly refuses them."""
+    from repro_torch.kernels import fused
+    from repro_torch.models.numerics import EmulatedPolicy
+    from repro_torch.numerics import get_format
+    from repro_torch.numerics.emulate import policy_matmul
+    from repro_torch.parallel import sharding as sh
+    with sh.use_mesh(ctx):
+        xd = sh.shard(x, "batch", None, "tensor")
+        wd = sh.redistribute(w, ctx.mesh, sh.placements(
+            sh.spec_for(("fsdp", "tensor"), tuple(w.shape)), ctx.mesh))
+        before = fused.fused_qmm.launches
+        out = policy_matmul(xd, wd, EmulatedPolicy("bf16", "fused"))
+        launched = fused.fused_qmm.launches - before
+        try:
+            fused.fused_qmm(xd, wd, fmt=get_format("bf16"))
+            refused = None
+        except TypeError as e:
+            refused = str(e)[:100]
+    check(launched == 1, f"the policy matmul on the mesh launched K1 "
+          f"{launched} times")
+    check(torch.equal(bits(out.to_local()), bits(ref)),
+          "the policy matmul on the mesh differs from the unsharded K1")
+    check(refused is not None, "fused_qmm accepted a DTensor")
+    return dict(shape=[list(x.shape), list(w.shape)],
+                placements=[str(p) for p in out.placements],
+                k1_launches=launched, bitwise=True, refused=refused)
+
+
+def dist_launcher_result(child):
+    """(g) ``launch.train --devices 1`` on the card: exit 0, its step-10 row
+    below the loss of a uniform prediction over the padded vocabulary
+    (where the random init starts), its last line naming one device."""
+    import ast
+    import math
+    lines, wall = child.finish()
+    rows = [ast.literal_eval(x) for x in lines if x.startswith("{")]
+    check(lines[-1] == f"trained {ARCH} (reduced) for {DIST_LAUNCH_STEPS} "
+          "steps on 1 device(s)", f"launch.train --devices 1: {lines[-1:]}")
+    check(len(rows) == 1 and rows[0]["loss"] < math.log(256),
+          f"launch.train --devices 1: the loss did not fall: {lines}")
+    return dict(lines=lines[-2:], wall_s=wall, uniform_loss=math.log(256))
+
+
+def distributed_path(model, params, dev, smi, k1):
+    """Phase 3h: (g) starts as a child process; then on a world of one
+    NCCL rank with a (data=1, model=1) mesh (b), (e), (c) in float32, (d)
+    and (f) run while it does; (g) is read, and (a) and (c)'s bf16 times
+    are taken with the card to this process alone; the group is
+    destroyed."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as sh
+    t_phase = time.perf_counter()
+    child = Launcher("repro_torch.launch.train", "--arch", ARCH, "--steps",
+                     str(DIST_LAUNCH_STEPS), "--devices", "1")
+    out = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        rec = fn()
+        rec["seconds"] = time.perf_counter() - t0
+        out[name] = rec
+        release()
+
+    try:
+        with nccl_world_of_one():
+            ctx = sh.make_context(make_host_mesh(data=1, model=1))
+            t0 = time.perf_counter()
+            rec, state, specs = dist_cut_vs_unsharded(model.cfg, dev, ctx)
+            out["cut_vs_unsharded"] = dict(rec, seconds=time.perf_counter()
+                                           - t0)
+            run("checkpoint", lambda: dist_checkpoint(state, specs, ctx))
+            del state
+            run("moe_layer0", lambda: dist_moe_full_width(dev, ctx, smi,
+                                                          timed=False))
+            run("pipeline", lambda: dist_pipeline(dev))
+            run("policy_matmul_k1", lambda: dist_k1(*k1, ctx))
+            t0 = time.perf_counter()
+            out["launcher"] = dist_launcher_result(child)
+            out["launcher_waited_s"] = time.perf_counter() - t0
+            run("full_width_step",
+                lambda: dist_train_full_width(model, dev, smi, ctx))
+            run("moe_layer0_bf16_times", lambda: dist_moe_full_width(
+                dev, ctx, smi, timed=True))
+        import torch.distributed as dist
+        check(not dist.is_initialized(), "the process group outlived the "
+              "phase")
+    finally:
+        child.close()
+    release()
+    emit({"phase": "distributed", "arch": ARCH, "world": 1,
+          "backend": "nccl", "seconds": time.perf_counter() - t_phase,
+          **out})
+
+
 def serve_f32(cfg, params, dev, layers=None, **kw):
     """The served-token check of ``serve_full_width`` (``kw``: its request
     options) on the same model and requests computed in float32 (the bf16
@@ -3397,11 +3776,13 @@ def profile_decode(model, params, rng):
 HYBRID_ARCH = "zamba2-1.2b"
 MOE_ARCH = "deepseek-moe-16b"
 WINDOW_ARCH = "mixtral-8x7b"
-# the float32 runs of deepseek-moe-16b and falcon-mamba-7b take this many of
-# their 28 and 64 layers (full width), for the script's time: the float32
-# run checks the serving logic, which every layer runs alike
+# the float32 runs of deepseek-moe-16b, falcon-mamba-7b and zamba2-1.2b take
+# this many of their 28, 64 and 38 layers (full width), for the script's
+# time: the float32 run checks the serving logic, which every layer runs
+# alike (zamba2's 12 keep two shared-block applications)
 MOE_F32_LAYERS = 8
 SSM_F32_LAYERS = 16
+HYBRID_F32_LAYERS = 12
 # the hybrid's chunked server: the engine rounds the chunk up to the scan's
 # 64-token carry points
 HYBRID_CHUNK = 64
@@ -3536,7 +3917,8 @@ def chunked_server(model, params, mono):
 def hybrid_path(dev, drive, rng):
     """zamba2-1.2b at full width and depth: served in bf16 (monolithic and
     chunked, held to twice the model's own bf16 noise floor) and in
-    float32 (held to NEAR_TIE), one emulated prefill and decode with 37 K1
+    float32 at HYBRID_F32_LAYERS of its depth (held to NEAR_TIE), one
+    emulated prefill and decode with 37 K1
     launches per forward (six shared-block projections per application,
     six applications, and the unembed), and a profile of one decode
     step."""
@@ -3550,7 +3932,7 @@ def hybrid_path(dev, drive, rng):
               model, params, np.random.default_rng(SEED + 1),
               noise_floor=True, parting_on_decode=True)),
           lambda: chunked_server(model, params, mono),
-          lambda: serve_f32(cfg, params, dev),
+          lambda: serve_f32(cfg, params, dev, layers=HYBRID_F32_LAYERS),
           lambda: emulated_forwards(model, params, rng, per_fwd))
     profile_decode(model, params, rng)
 
@@ -4495,6 +4877,16 @@ def main():
                             lambda: train_path(model, params, dev, smi))
     check(not any(train_counts.values()),
           f"the train path launched {train_counts}")
+    # distribution on a world of one NCCL rank: only (f)'s policy matmul
+    # on the mesh launches a kernel, K1 once; its unsharded K1 reference
+    # runs before the window
+    k1_dist = dist_k1_operands(params, dev)
+    dist_counts, _ = drive(
+        f"{ARCH} distributed", ("fused_qmm",),
+        lambda: distributed_path(model, params, dev, smi, k1_dist))
+    check(dist_counts["fused_qmm"] == 1 and sum(dist_counts.values()) == 1,
+          f"the distributed path launched {dist_counts}")
+    del k1_dist
     specs = benchgen_specs()
     machine = calibrate(device=dev)  # launches K2: outside the window
     _, (bench,) = drive(

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 from typing import Dict
@@ -37,6 +38,21 @@ class NoBackwardError(RuntimeError):
     The kernels have no backward (nor do the JAX package's Pallas kernels
     they port), and a ``ctypes`` launch leaves no ``grad_fn``, so autograd
     would silently treat the output as a constant."""
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``TypeError`` when a DTensor reaches the kernel ``name``'s
+    wrapper: a kernel reads one device's memory, so a sharded operand must
+    first be made whole by the caller (``numerics.emulate.policy_matmul``
+    does so under a mesh), never silently inside a wrapper."""
+    if "torch.distributed.tensor" not in sys.modules:
+        return  # no DTensor can exist
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"{name}: got a DTensor; the kernel runs on one device's local "
+            "tensors. Redistribute the operands to Replicate and pass "
+            "their local tensors (policy_matmul does this under a mesh)")
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:

@@ -24,6 +24,7 @@ def fma_emu_matmul(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
 
     CPU tensors take ``fma_emu_matmul_ref``; a CUDA tensor launches the
     kernel and counts the launch in ``fma_emu_matmul.launches``."""
+    _build.refuse_dtensor("fma_emu_matmul", a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"bad matmul shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")

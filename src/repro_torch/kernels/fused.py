@@ -296,6 +296,7 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
     CUDA tensor launches the kernel on ``plan_qmm``'s schedule (f32 or bf16
     operands, b through its strides) and counts the launch in
     ``fused_qmm.launches``."""
+    _build.refuse_dtensor("fused_qmm", a, b)
     batched = a.dim() == 3
     a3 = a if batched else a[None]
     if a3.dim() != 3 or b.dim() != 2 or a3.shape[2] != b.shape[0]:
@@ -345,6 +346,7 @@ def ssm_scan_quantized(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
     clamped to D first), as in the JAX package.  CPU tensors take
     ``ssm_scan_quantized_ref`` after those checks; a CUDA tensor launches
     the kernel and counts the launch in ``ssm_scan_quantized.launches``."""
+    _build.refuse_dtensor("ssm_scan_quantized", a, b, c)
     _ssm.check_shapes(a, b, c)
     B, S, D, N = a.shape
     bd = min(bd, D)
@@ -625,6 +627,7 @@ def fused_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``fused_flash_ref`` behind the same argument checks; a CUDA tensor
     launches the kernel (D and the blocks up to 128) and counts the launch
     in ``fused_flash_attention.launches``."""
+    _build.refuse_dtensor("fused_flash_attention", q, k, v)
     _check_flash(q, k, v, block_q, block_k)
     kw = dict(fmt=fmt, scaled=scaled, causal=causal, window=window,
               kv_len=kv_len, q_offset=q_offset, out_fmt=out_fmt)

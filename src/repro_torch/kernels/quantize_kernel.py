@@ -32,6 +32,7 @@ def quantize_nd(x: torch.Tensor, *, fmt: FloatFormat) -> torch.Tensor:
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and counts the launch in ``quantize_nd.launches``)."""
+    _build.refuse_dtensor("quantize_nd", x)
     if fmt.exp_bits > 8 or fmt.man_bits > 23:
         raise ValueError(f"f32 quantize path supports sub-f32 formats, got {fmt}")
     if x.device.type == "cpu":

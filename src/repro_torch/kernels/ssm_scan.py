@@ -176,6 +176,7 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
     D % bd == 0 are required, as in the JAX package (bd is clamped to D
     after the check).  CPU tensors take ``ssm_scan_ref``; a CUDA tensor
     launches the kernel and counts the launch in ``ssm_scan.launches``."""
+    _build.refuse_dtensor("ssm_scan", a, b, c)
     check_shapes(a, b, c)
     B, S, D, N = a.shape
     if S % chunk or D % min(bd, D):

@@ -40,6 +40,9 @@ from repro_torch.models.layers import (apply_rope, dense_init, embed_apply,
                                        rmsnorm, rmsnorm_init, unembed_apply)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.numerics import matmul
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import (constrain_layer_params, shard,
+                                           tensor_size)
 
 _ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -60,10 +63,31 @@ def _pad_vocab(v: int, multiple: int = 256) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
+def _whole_layer_axis(t):
+    """A stacked leaf with its leading (layer) axis whole.  Under a mesh the
+    rules may shard it (the hybrid's stacked (L, H) ``A_log`` is sized as
+    a 2-D leaf), and DTensor has no rule to index or unbind a sharded dim,
+    so it is gathered first."""
+    if not sh.is_dtensor(t) or not any(p.is_shard(0) for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(0)
+                                          else p for p in t.placements])
+
+
 def _layer(tree: Dict, i: int) -> Dict:
     """Layer ``i``'s slice of the stacked parameter tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _refuse_mesh(what: str):
+    """Decode and chunked prefill write the plain decode cache in place,
+    which a DTensor cannot be; they run without a mesh only."""
+    if sh.active() is not None:
+        raise RuntimeError(f"{what} writes the decode cache in place and "
+                           f"does not run under a mesh; call it outside "
+                           f"sharding.use_mesh")
 
 
 def _unstack(tree: Dict, start: int, end: int):
@@ -74,7 +98,7 @@ def _unstack(tree: Dict, start: int, end: int):
     def split(node):
         if isinstance(node, dict):
             return {k: split(v) for k, v in node.items()}
-        return node[start:end].unbind(0)
+        return _whole_layer_axis(node)[start:end].unbind(0)
 
     def pick(node, i):
         if isinstance(node, dict):
@@ -163,8 +187,21 @@ def _qkv(p, h, cfg: ArchConfig, positions, policy):
 
 def _ffn(p, h2, cfg: ArchConfig, policy):
     """The MLP, or for the moe family the MoE (which no policy reaches:
-    the JAX ``_ffn`` passes none to ``moe_apply``).  Returns (out, aux)."""
+    the JAX ``_ffn`` passes none to ``moe_apply``): under a mesh with a
+    'data' axis of more than one rank, the expert-parallel dispatch of
+    ``moe_sharded``, and under any other mesh the single-program one on
+    every rank.  Returns (out, aux)."""
     if cfg.family == "moe":
+        ctx = sh.active()
+        if ctx is not None:
+            from repro_torch.models import moe_sharded
+            if ctx.axes.get("data", 1) > 1:
+                return moe_sharded.moe_apply_distributed(
+                    p["moe"], h2, top_k=cfg.experts_per_token,
+                    capacity_factor=cfg.capacity_factor, ctx=ctx)
+            return moe_sharded._moe_apply_replicated(
+                p["moe"], h2, top_k=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor)
         return moe_apply(p["moe"], h2, top_k=cfg.experts_per_token,
                          capacity_factor=cfg.capacity_factor)
     return mlp_apply(p["mlp"], h2, cfg.mlp_act, policy), {"aux_loss": 0.0}
@@ -180,21 +217,53 @@ def _residual_ffn(p, x, attn, cfg: ArchConfig, policy):
     return x + ff, aux
 
 
+def _attend(q, k, v, cfg: ArchConfig, triangle_skip: bool):
+    """Causal attention of (B, S, H, D) q, k, v.  With ``triangle_skip``
+    the plain blockwise forward with the causal per-block kv extent
+    (autograd through it keeps every block's probabilities), else the
+    recompute-backward ``flash_vjp`` one.  Under a mesh it runs per rank
+    on the local batch and head shards (``local_map``), as the JAX
+    package's attention is batch- and head-parallel; its in-place block
+    writes then stay on plain tensors."""
+    def run(q, k, v):
+        if triangle_skip:
+            return flash_attention(q, k, v, causal=True, window=cfg.window,
+                                   triangle_skip=True)
+        return flash_attention_trainable(q, k, v, causal=True,
+                                         window=cfg.window)
+
+    ctx = sh.active()
+    if ctx is None:
+        return run(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(run, out_placements=(q.placements,),
+                     in_placements=(q.placements, k.placements,
+                                    v.placements),
+                     device_mesh=ctx.mesh)(q, k, v)
+
+
 def attn_block_apply(p, x, positions, cfg: ArchConfig, *, policy=None,
                      triangle_skip: bool = False):
-    """Full-sequence block.  Returns (out, aux, (k, v)).  With
-    ``triangle_skip`` the attention is the plain blockwise forward with the
-    causal per-block kv extent (autograd through it keeps every block's
-    probabilities), else the recompute-backward ``flash_vjp`` one."""
+    """Full-sequence block.  Returns (out, aux, (k, v)); ``_attend`` says
+    which attention runs."""
     h = rmsnorm(p["ln1"], x)
     q, k, v = _qkv(p, h, cfg, positions, policy)
-    if triangle_skip:
-        attn = flash_attention(q, k, v, causal=True, window=cfg.window,
-                               triangle_skip=True)
-    else:
-        attn = flash_attention_trainable(q, k, v, causal=True,
-                                         window=cfg.window)
+    # TP over heads: when Hkv doesn't divide the model axis but Hq does,
+    # repeat KV to full heads so attention shards over the model axis
+    ts = tensor_size()
+    ka, va = k, v
+    if ts > 1 and cfg.n_kv_heads % ts and cfg.n_heads % ts == 0:
+        g = cfg.n_heads // cfg.n_kv_heads
+        ka = torch.repeat_interleave(k, g, dim=2)
+        va = torch.repeat_interleave(v, g, dim=2)
+    q = shard(q, "batch", None, "tensor", None)
+    ka = shard(ka, "batch", None, "tensor", None)
+    va = shard(va, "batch", None, "tensor", None)
+    attn = _attend(q, ka, va, cfg, triangle_skip)
     out, aux = _residual_ffn(p, x, attn, cfg, policy)
+    # Megatron-SP: residual stream sequence-sharded over the model axis
+    # between blocks
+    out = shard(out, "batch", "tensor", None)
     return out, aux, (k, v)
 
 
@@ -275,7 +344,9 @@ def _chunk_attn_block(p, x, k_cache, v_cache, offsets, chunk_lens, positions,
         ext = torch.cat([cache, cache[:, :1]], dim=1)
         ext[lanes, write_idx] = to_cache(fresh, cache.dtype)
         out.append(ext[:, :smax])
-    return (_residual_ffn(p, x, attn, cfg, policy)[0], new_k[0], new_v[0])
+    out = shard(_residual_ffn(p, x, attn, cfg, policy)[0], "batch",
+                "tensor", None)
+    return out, new_k[0], new_v[0]
 
 
 # ---------------------------------------------------------------------------
@@ -297,22 +368,55 @@ def ssm_block_init(gen: torch.Generator, cfg: ArchConfig, dtype, n: int):
     return p
 
 
+def _mamba(p, h, cfg: ArchConfig, state, return_state: bool):
+    kw = dict(state=state, return_state=return_state,
+              chunk=cfg.ssm_scan_chunk)
+    if cfg.ssm_version == 1:
+        return ssm.mamba1_apply(p, h, d_state=cfg.ssm_state, **kw)
+    return ssm.mamba2_apply(p, h, d_state=cfg.ssm_state,
+                            head_dim=cfg.ssm_head_dim, **kw)
+
+
+def _mamba_per_rank(p, h, cfg: ArchConfig, state, return_state: bool):
+    """The mamba block under a mesh, run per rank on its batch shard: the
+    parameters are gathered to ``Replicate`` (the chunked scan's slices,
+    pads and concatenations of the state expansion have no DTensor
+    sharding rule, and a channel split would need the ``x_proj`` and
+    ``in_proj`` contractions summed inside every chunk).  Returns what
+    ``_mamba`` returns, as DTensors sharded over the batch axes."""
+    from repro_torch.train import tree as tree_util
+    ctx = sh.active()
+    mesh = ctx.mesh
+
+    def batch_spec(shape):
+        return sh.spec_for(("batch",) + (None,) * (len(shape) - 1),
+                           tuple(shape), ctx)
+
+    leaves = [sh.to_local(t, mesh, sh.P(), ctx.batch_axes)
+              for t in tree_util.leaves(p)]
+    local_state = None if state is None else tuple(
+        sh.to_local(t, mesh, batch_spec(t.shape)) for t in state)
+    out = _mamba(tree_util.unflatten(p, leaves),
+                 sh.to_local(h, mesh, batch_spec(h.shape)), cfg, local_state,
+                 return_state)
+    flat = [out[0], *out[1]] if return_state else [out]
+    # each leads with the batch
+    glob = [sh.from_local(t, mesh, batch_spec((h.shape[0],) + t.shape[1:]))
+            for t in flat]
+    return (glob[0], tuple(glob[1:])) if return_state else glob[0]
+
+
 def ssm_block_apply(p, x, cfg: ArchConfig, state=None,
                     return_state: bool = False):
     """x + mamba(norm(x)); with ``return_state`` also the block's
     (conv carry, h) after the sequence."""
     h = rmsnorm(p["ln"], x)
-    kw = dict(state=state, return_state=return_state,
-              chunk=cfg.ssm_scan_chunk)
-    if cfg.ssm_version == 1:
-        out = ssm.mamba1_apply(p["mamba"], h, d_state=cfg.ssm_state, **kw)
-    else:
-        out = ssm.mamba2_apply(p["mamba"], h, d_state=cfg.ssm_state,
-                               head_dim=cfg.ssm_head_dim, **kw)
+    run = _mamba_per_rank if sh.active() is not None else _mamba
+    out = run(p["mamba"], h, cfg, state, return_state)
     if return_state:
         y, new_state = out
-        return x + y, new_state
-    return x + out
+        return shard(x + y, "batch", "tensor", None), new_state
+    return shard(x + out, "batch", "tensor", None)
 
 
 # ---------------------------------------------------------------------------
@@ -330,8 +434,19 @@ class DecodeCache:
     length: torch.Tensor
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose draws land on the ``meta`` device (torch has no
+    meta generator): ``LM(cfg, device="meta").init`` builds the parameter
+    shapes of any config without memory."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 class LM:
-    """Decoder LM for one ArchConfig, on ``device`` (default CUDA)."""
+    """Decoder LM for one ArchConfig, on ``device`` (default CUDA;
+    ``"meta"`` gives shapes only)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         if cfg.family not in _ATTN_FAMILIES + ("ssm", "hybrid"):
@@ -352,7 +467,8 @@ class LM:
         """Random parameters drawn on the model's device from a
         ``torch.Generator`` seeded with ``seed``."""
         cfg, dtype = self.cfg, self.dtype
-        gen = torch.Generator(device=self.device)
+        gen = _MetaGenerator() if self.device.type == "meta" \
+            else torch.Generator(device=self.device)
         gen.manual_seed(seed)
         block_init = attn_block_init if cfg.family in _ATTN_FAMILIES \
             else ssm_block_init
@@ -396,7 +512,7 @@ class LM:
             x = embed_apply(params["embed"], tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(self.dtype), x], dim=1)
-        return x
+        return shard(x, "batch", None, None)
 
     def apply(self, params, tokens=None, *, prefix_embeds=None,
               frame_embeds=None, policy=None, collect_kv: bool = False,
@@ -426,7 +542,19 @@ class LM:
         Under a policy, only the attention projections, the dense MLPs and
         the unembed are emulated: the ssm family's only policy-routed
         matmul is the unembed, the moe family's experts and router take
-        none, nor do the hybrid's Mamba-2 blocks."""
+        none, nor do the hybrid's Mamba-2 blocks.
+
+        Under a mesh (``parallel.sharding.use_mesh``) the parameters are
+        DTensors and so are the results."""
+        with sh.mesh_region():
+            return self._apply(params, tokens, prefix_embeds, frame_embeds,
+                               policy, collect_kv, collect_states,
+                               triangle_skip, logits_last_only, last_index,
+                               moe_stats)
+
+    def _apply(self, params, tokens, prefix_embeds, frame_embeds, policy,
+               collect_kv, collect_states, triangle_skip, logits_last_only,
+               last_index, moe_stats):
         x = self._embed_inputs(params, tokens, prefix_embeds, frame_embeds)
         B = x.shape[0]
         x, aux, kv, states = self._stack(params, x, policy, collect_kv,
@@ -438,7 +566,8 @@ class LM:
             x = x[torch.arange(B, device=x.device), last_index][:, None]
         elif logits_last_only:
             x = x[:, -1:]
-        logits = unembed_apply(params["embed"], x, policy)
+        logits = shard(unembed_apply(params["embed"], x, policy), "batch",
+                       None, "tensor")
         return (logits, aux) + ((kv,) if collect_kv else ()) \
             + ((states,) if collect_states else ())
 
@@ -454,6 +583,7 @@ class LM:
         remat = cfg.remat and _needs_grad(params, x)
         if cfg.family in _ATTN_FAMILIES:
             def block(lp, x):
+                lp = constrain_layer_params(lp, cfg.n_experts)
                 return attn_block_apply(lp, x, positions, cfg, policy=policy,
                                         triangle_skip=triangle_skip)
 
@@ -509,12 +639,14 @@ class LM:
         remat = cfg.remat and not keep and _needs_grad(layers, x)
 
         def block(lp, x):
-            return ssm_block_apply(lp, x, cfg)
+            return ssm_block_apply(constrain_layer_params(lp, cfg.n_experts),
+                                   x, cfg)
 
         for i, lp in enumerate(_unstack(layers, start, end), start):
             if not keep:
                 x = _remat(block, lp, x, on=remat)
                 continue
+            lp = constrain_layer_params(lp, cfg.n_experts)
             st = None if states is None else (states[0][i], states[1][i])
             x, (conv, h) = ssm_block_apply(lp, x, cfg, state=st,
                                            return_state=True)
@@ -530,7 +662,12 @@ class LM:
         metrics): the mean cross-entropy over the scored tokens, plus the
         z-loss 1e-4 * mean(logsumexp^2 * mask), plus 0.01 * the MoE
         load-balance loss; metrics ``ce``, ``z_loss``, ``aux_loss`` and
-        ``tokens`` (the scored count, at least 1), f32 tensors."""
+        ``tokens`` (the scored count, at least 1), f32 tensors (DTensors
+        under a mesh)."""
+        with sh.mesh_region():
+            return self._loss_fn(params, batch, policy)
+
+    def _loss_fn(self, params, batch, policy):
         logits, aux = self.apply(
             params, batch.get("tokens"),
             prefix_embeds=batch.get("prefix_embeds"),
@@ -615,8 +752,9 @@ class LM:
 
         The cache is written in place; ``write_mask`` (B,) bool leaves the
         cache bits of masked-off lanes untouched."""
+        _refuse_mesh("decode_step")
         cfg = self.cfg
-        x = embed_apply(params["embed"], tokens)
+        x = shard(embed_apply(params["embed"], tokens), "batch", None, None)
         B = x.shape[0]
         clen = cache.length
         lens = clen.expand(B) if clen.dim() == 0 else clen
@@ -641,7 +779,8 @@ class LM:
                                           write_mask=write_mask)
                     app += 1
         x = rmsnorm(params["final_norm"], x)
-        logits = unembed_apply(params["embed"], x, policy)
+        logits = shard(unembed_apply(params["embed"], x, policy), "batch",
+                       None, "tensor")
         return logits, DecodeCache(cache.data, clen + 1)
 
     # -------------------------------------------------------- prefill ------
@@ -668,6 +807,12 @@ class LM:
         prefix.  A ring cache shorter than the prompt keeps the prompt's
         tail, ring-aligned: position p at slot p % smax, where decode
         writes next."""
+        with sh.mesh_region():
+            return self._prefill(params, tokens, prefix_embeds, frame_embeds,
+                                 max_len, policy)
+
+    def _prefill(self, params, tokens, prefix_embeds, frame_embeds, max_len,
+                 policy):
         logits, kv, states = self._collect(
             params, tokens, policy, prefix_embeds, frame_embeds,
             logits_last_only=True)
@@ -679,15 +824,25 @@ class LM:
             return logits[:, -1], self.cache_at_length(cache, S)
         cache = self.init_cache(B, max_len or S)
         data = cache.data
+        # under a mesh kv and states are DTensors: the cache is built from
+        # them, not written in place into the plain zeros
+        meshed = sh.active() is not None
         if kv is not None:
             smax = data["k"].shape[2]
             for name, t in zip(("k", "v"), kv):
-                if smax >= S:
+                if smax >= S and meshed:
+                    data[name] = torch.cat([t, data[name][:, :, S:]], dim=2)
+                elif smax >= S:
                     data[name][:, :, :S] = t
+                elif meshed:
+                    data[name] = torch.roll(t[:, :, S - smax:], S % smax,
+                                            dims=2)
                 else:
                     data[name].copy_(torch.roll(t[:, :, S - smax:], S % smax,
                                                 dims=2))
-        if states is not None:
+        if states is not None and meshed:
+            data["conv"], data["h"] = states
+        elif states is not None:
             data["conv"].copy_(states[0])
             data["h"].copy_(states[1])
         return logits[:, -1], self.cache_at_length(cache, S)
@@ -727,8 +882,9 @@ class LM:
         (``chunk_lens == Cb``: the conv carry is the raw chunk tail), and
         the prefill equals the monolithic one when every non-final boundary
         lands on a multiple of ``cfg.ssm_scan_chunk``."""
+        _refuse_mesh("prefill_chunk")
         cfg, dev = self.cfg, self.device
-        x = embed_apply(params["embed"], tokens)
+        x = shard(embed_apply(params["embed"], tokens), "batch", None, None)
         M, Cb = tokens.shape
         offsets = torch.as_tensor(offsets, dtype=torch.int64, device=dev)
         chunk_lens = torch.as_tensor(chunk_lens, dtype=torch.int64,
@@ -747,7 +903,9 @@ class LM:
 
         if cfg.family in _ATTN_FAMILIES:
             for i in range(cfg.n_layers):
-                x = attend(_layer(params["layers"], i), x, i, self.ring)
+                lp = constrain_layer_params(_layer(params["layers"], i),
+                                            cfg.n_experts)
+                x = attend(lp, x, i, self.ring)
         else:
             fresh = offsets == 0
             lanes = []
@@ -770,7 +928,8 @@ class LM:
         length[slot_ids] = offsets + chunk_lens
         x = rmsnorm(params["final_norm"], x)
         x = x[torch.arange(M, device=dev), chunk_lens - 1][:, None]
-        logits = unembed_apply(params["embed"], x, policy)
+        logits = shard(unembed_apply(params["embed"], x, policy), "batch",
+                       None, "tensor")
         return logits[:, 0], DecodeCache(data, length)
 
     def prefill_chunked(self, params, tokens, chunk_size: int, *,

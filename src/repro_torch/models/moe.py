@@ -149,10 +149,13 @@ def combine(y_slot: torch.Tensor, r: Routing, n_tokens: int) -> torch.Tensor:
     return y
 
 
-def moe_apply(p, x, *, top_k: int, capacity_factor: float = 1.25
-              ) -> Tuple[torch.Tensor, Dict]:
-    """x: (B,S,d). Returns (out, {"aux_loss", "dropped_frac"})."""
+def moe_apply(p, x, *, top_k: int, capacity_factor: float = 1.25,
+              shard_fn=None) -> Tuple[torch.Tensor, Dict]:
+    """x: (B,S,d). Returns (out, {"aux_loss", "dropped_frac"}).
+    ``shard_fn(t, kind)`` is applied to the (E, cap, d) expert buffer with
+    ``kind="expert_buffer"`` (a layout hook; the identity by default)."""
     B, S, d = x.shape
+    shard_fn = shard_fn or (lambda t, kind: t)
     E = p["router"].shape[1]
     T = B * S
     xf = x.reshape(T, d)
@@ -163,7 +166,8 @@ def moe_apply(p, x, *, top_k: int, capacity_factor: float = 1.25
     gathered = xf[r.tok] * r.keep[:, None].to(x.dtype)
     xbuf = torch.zeros((E * r.cap, d), dtype=x.dtype, device=x.device)
     xbuf.index_put_((r.slot,), gathered, accumulate=True)
-    ybuf = _expert_ffn(p, xbuf.reshape(E, r.cap, d)).reshape(E * r.cap, d)
+    xbuf = shard_fn(xbuf.reshape(E, r.cap, d), "expert_buffer")
+    ybuf = _expert_ffn(p, xbuf).reshape(E * r.cap, d)
     w_sorted = r.top_w.reshape(-1)[r.order]
     y_slot = ybuf[r.slot] * (r.keep.to(torch.float32)
                              * w_sorted)[:, None].to(x.dtype)

@@ -131,9 +131,23 @@ def policy_matmul(x: torch.Tensor, w: torch.Tensor, policy=None):
     operands' dtype; emulating policies route through ``emulated_matmul``
     on x's device.  The kernel widens bf16 operands on load, so weights are
     passed as they are (no f32 copy per call); the result is cast back to
-    x's dtype."""
+    x's dtype.
+
+    DTensor operands (under a mesh) take the emulating path the JAX
+    package's Pallas calls take under GSPMD, which cannot partition a
+    custom call: the operands are redistributed to ``Replicate``, every
+    rank runs the kernel (K1 on the card, its plain version on the CPU) on
+    its full local operands, and the result is a replicated DTensor."""
     if policy is None or not getattr(policy, "emulate", False):
         return torch.matmul(x, w)
+    from repro_torch.parallel import sharding as sh
+    if sh.is_dtensor(x) or sh.is_dtensor(w):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = (x if sh.is_dtensor(x) else w).device_mesh
+        rep = [Replicate()] * mesh.ndim
+        out = policy_matmul(sh.redistribute(x, mesh, rep).to_local(),
+                            sh.redistribute(w, mesh, rep).to_local(), policy)
+        return DTensor.from_local(out, mesh, rep, run_check=False)
     lead = x.shape[:-1]
     x2 = x.reshape((-1, x.shape[-1]))
     out = emulated_matmul(x2, w, fmt=get_format(policy.fmt),

@@ -8,8 +8,13 @@ none), with the manifest's ``step``, ``n_leaves``, ``treedef``, ``paths``,
 ``shapes``, ``dtypes`` and ``extra``.  numpy has no bfloat16 or float8, so
 those leaves are stored as same-width unsigned views under their dtype's
 name and restored through torch views (no ``ml_dtypes`` needed).  A
-checkpoint written by either package restores in the other.  Restoring
-onto another mesh (``shardings``) belongs to the distribution slice.
+checkpoint written by either package restores in the other.
+
+A sharded state (DTensor leaves) is saved as its full tensors, the same
+bytes as an unsharded save; in a process group only rank 0 writes, and
+every rank takes part in gathering the leaves.  ``shardings`` restores
+onto a mesh, which may be of another shape than the one saved from (an
+elastic restart).
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.parallel import sharding as sh
 from repro_torch.train import tree as tree_util
 
 # dtype name -> (the numpy dtype stored, the signed numpy twin torch reads,
@@ -101,13 +108,18 @@ def save_pytree(tree, directory: str, step: int,
     return final
 
 
+def _writer() -> bool:
+    """This process writes checkpoints: rank 0 of a process group, or a
+    process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def load_pytree(directory: str, step: int, like=None, shardings=None):
     """Load a checkpoint into the structure of ``like``, each leaf cast to
-    the dtype and device of ``like``'s leaf.  Returns (tree, manifest)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "shardings: restoring onto a mesh is ROADMAP item 12c "
-            "(distribution), not ported yet")
+    the dtype and device of ``like``'s leaf.  ``shardings``: a tree like
+    ``like`` of ``parallel.sharding.NamedSharding``; each leaf then becomes
+    a DTensor on its mesh with its placements, every rank keeping its own
+    slice of the file's full tensor.  Returns (tree, manifest)."""
     if like is None:
         raise ValueError("load_pytree needs a `like` pytree for structure")
     d = os.path.join(directory, f"step_{step}")
@@ -120,9 +132,14 @@ def load_pytree(directory: str, step: int, like=None, shardings=None):
     leaves = [_from_saved(np.load(os.path.join(d, f"leaf_{i}.npy")),
                           manifest["dtypes"][i])
               for i in range(manifest["n_leaves"])]
-    return tree_util.unflatten(like, [
-        a.to(device=l.device, dtype=l.dtype)
-        for a, l in zip(leaves, like_flat)]), manifest
+    leaves = [a.to(device=l.device, dtype=l.dtype)
+              for a, l in zip(leaves, like_flat)]
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+        leaves = [distribute_tensor(a.to(s.mesh.device_type), s.mesh,
+                                    s.placements, src_data_rank=None)
+                  for a, s in zip(leaves, tree_util.leaves(shardings))]
+    return tree_util.unflatten(like, leaves), manifest
 
 
 class CheckpointManager:
@@ -158,15 +175,20 @@ class CheckpointManager:
     def save(self, step: int, tree, extra: Optional[dict] = None,
              block: bool = False):
         """Copy every leaf to the host now (so training may overwrite its
-        tensors), then write, in the background thread unless ``block``."""
+        tensors; a DTensor's full tensor, gathered by every rank), then
+        write, in the background thread unless ``block``.  In a process
+        group only rank 0 writes, and a blocking save ends at a barrier, so
+        every rank may restore right after it."""
         host_tree = tree_util.map(
-            lambda x: x.detach().to("cpu", copy=True)
+            lambda x: sh.full(x.detach()).to("cpu", copy=True)
             if isinstance(x, torch.Tensor) else np.array(x), tree)
-        if self._async and not block:
+        if _writer() and self._async and not block:
             self._q.put((step, host_tree, extra))
-        else:
+        elif _writer():
             save_pytree(host_tree, self.directory, step, extra)
             self._gc()
+        if block and dist.is_initialized():
+            dist.barrier()
 
     def restore(self, like, step: Optional[int] = None, shardings=None):
         step = self.latest_step() if step is None else step

@@ -17,6 +17,12 @@ true division.  Inside ``jax.jit`` XLA turns a division by a constant into
 a product with its f32 reciprocal and contracts some products and sums,
 which moves the last bits of the jitted reference.  The functional update
 returns new tensors and leaves the state it was given untouched.
+
+On DTensor leaves (a sharded train state) every reduction is global: the
+norm and each compressed leaf's max are taken over the whole tensor
+(``full_tensor`` of the partial results), and the clip factor, the
+learning rate and the bias corrections stay plain 0-d tensors, which
+DTensor reads as replicated scalars.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.parallel import sharding as sh
 from repro_torch.train import tree as tree_util
 
 F32 = torch.float32
@@ -67,8 +74,9 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf in f32, the leaves summed
-    in JAX's order."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(F32)))
+    in JAX's order; a plain tensor, each DTensor leaf's sum taken over its
+    whole tensor."""
+    return torch.sqrt(sum(sh.full(torch.sum(torch.square(leaf.to(F32))))
                           for leaf in tree_util.leaves(tree)))
 
 
@@ -77,7 +85,7 @@ def global_norm(tree) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def _compress_leaf(g, e):
     gf = g.to(F32) + e
-    scale = torch.clamp(torch.max(torch.abs(gf)), min=1e-30) / 127.0
+    scale = torch.clamp(sh.full(torch.max(torch.abs(gf))), min=1e-30) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     deq = q.to(F32) * scale
     return deq, gf - deq  # the gradient sent, the new error state
@@ -96,8 +104,8 @@ def compress_grads(grads, err):
 # ---------------------------------------------------------------------------
 def init_state(params, cfg: AdamWConfig) -> AdamState:
     """Zero f32 moments (and error state with compression), count 0."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=F32, device=p.device)
+    def zeros(p):  # a DTensor's keep its layout
+        return torch.zeros_like(p, dtype=F32)
 
     device = tree_util.leaves(params)[0].device
     return AdamState(mu=tree_util.map(zeros, params),
@@ -122,11 +130,12 @@ def apply_updates(params, grads, state: AdamState, cfg: AdamWConfig
         grads, new_err = compress_grads(grads, state.err)
 
     count = state.count + 1
-    lr = lr_schedule(cfg, count)
-    b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=F32, device=count.device),
-                        count.to(F32))
-    b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=F32, device=count.device),
-                        count.to(F32))
+    n = sh.full(count)
+    lr = lr_schedule(cfg, n)
+    b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=F32, device=n.device),
+                        n.to(F32))
+    b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=F32, device=n.device),
+                        n.to(F32))
 
     def upd(p, g, m, v):
         m2 = cfg.b1 * m + (1 - cfg.b1) * g

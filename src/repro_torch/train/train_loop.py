@@ -10,6 +10,12 @@ policy routes the model's matmuls to them, and on the card those kernels
 have no backward: training under an emulating policy raises there
 (``kernels._build.NoBackwardError``), as the JAX package's Pallas kernels
 have no differentiation rule.
+
+Under a mesh (``parallel.sharding.use_mesh``) the state's leaves are
+DTensors laid out by ``param_specs``: the forward and backward run in the
+mesh region, ``grad_shardings`` redistributes each gradient to its layout
+before AdamW, and the metrics come back as plain tensors, the same on
+every rank.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.parallel import sharding as sh
 from repro_torch.train import tree as tree_util
 from repro_torch.train.optimizer import (AdamState, AdamWConfig,
                                          apply_updates, init_state)
@@ -44,23 +51,24 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     ``microbatches`` > 1 splits the batch on axis 0 and sums the gradients
     in f32 zeros, then divides by ``microbatches``, as does the loss; the
     per-microbatch metrics are dropped on that path (the metrics hold only
-    ``grad_norm``, ``lr`` and ``loss``), as in the JAX package.  Sharded
-    gradients (``grad_shardings``) belong to the distribution slice."""
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings: sharded training is ROADMAP item 12c "
-            "(distribution), not ported yet")
-
+    ``grad_norm``, ``lr`` and ``loss``), as in the JAX package.
+    ``grad_shardings``: a tree of ``parallel.sharding.NamedSharding`` like
+    the params; each gradient is redistributed to its sharding before the
+    update (the JAX package pins them with a sharding constraint)."""
     def grads_of(params, batch):
         leaves = tree_util.leaves(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
+        with torch.enable_grad(), sh.mesh_region():
             loss, metrics = model.loss_fn(tree_util.unflatten(params, live),
                                           batch, policy=policy)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+        if grad_shardings is not None:
+            grads = [sh.redistribute(g, s.mesh, s.placements) for g, s in
+                     zip(grads, tree_util.leaves(grad_shardings))]
+        return (sh.full(loss.detach()),
+                {k: sh.full(v.detach()) for k, v in metrics.items()},
                 tree_util.unflatten(params, grads))
 
     def accumulate(params, batch):
@@ -68,8 +76,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
             n = x.shape[0] // microbatches
             return x[i * n:(i + 1) * n]
 
-        acc = tree_util.map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        acc = tree_util.map(lambda p: torch.zeros_like(
+            p, dtype=torch.float32), params)
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=tree_util.leaves(params)[0].device)
         for i in range(microbatches):

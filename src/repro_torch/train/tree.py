@@ -1,12 +1,15 @@
 """Pytrees of tensors in the JAX package's order.
 
 ``jax.tree.leaves`` visits dict entries in sorted key order and tuple,
-list and NamedTuple entries in order; an empty container and ``None`` give
-no leaf.  The optimizer's global norm, the checkpoint's leaf files and
+list and NamedTuple entries in order, and a registered dataclass (the
+decode cache) field by field; an empty container and ``None`` give no
+leaf.  The optimizer's global norm, the checkpoint's leaf files and
 ``train_state_from_jax`` all follow that order, so both packages read and
 write the same leaves in the same places.
 """
 from __future__ import annotations
+
+import dataclasses
 
 
 def _children(node):
@@ -18,7 +21,14 @@ def _children(node):
         return list(range(len(node))), lambda vals: type(node)(*vals)
     if isinstance(node, (tuple, list)):
         return list(range(len(node))), lambda vals: type(node)(vals)
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        names = [f.name for f in dataclasses.fields(node)]
+        return names, lambda vals: type(node)(*vals)
     return None
+
+
+def _child(node, k):
+    return getattr(node, k) if dataclasses.is_dataclass(node) else node[k]
 
 
 def leaves(tree) -> list:
@@ -30,7 +40,7 @@ def leaves(tree) -> list:
         return [tree]
     out = []
     for k in ch[0]:
-        out.extend(leaves(tree[k]))
+        out.extend(leaves(_child(tree, k)))
     return out
 
 
@@ -43,7 +53,7 @@ def paths(tree, prefix=()) -> list:
         return ["/".join(prefix)]
     out = []
     for k in ch[0]:
-        out.extend(paths(tree[k], prefix + (str(k),)))
+        out.extend(paths(_child(tree, k), prefix + (str(k),)))
     return out
 
 
@@ -57,7 +67,7 @@ def unflatten(like, values):
         ch = _children(node)
         if ch is None:
             return next(it)
-        return ch[1]([build(node[k]) for k in ch[0]])
+        return ch[1]([build(_child(node, k)) for k in ch[0]])
 
     out = build(like)
     if next(it, None) is not None:

@@ -7,7 +7,11 @@ package restores in the port with the same leaves bit for bit, and the
 reverse; both write the same manifest ``paths``, ``shapes`` and
 ``dtypes``.  ``run_with_restarts`` through ``failure_schedule({5, 9})``
 ends bitwise equal to the uninterrupted run, as the JAX package's
-tests/test_train_infra.py holds its own.
+tests/test_train_infra.py holds its own.  An elastic restart: a tree
+saved from a (data=4, model=2) mesh of 8 gloo ranks restores on a
+(data=2, model=2) mesh of 4 with other placements, bitwise, and the
+sharded save writes the bytes of an unsharded one (the JAX package's
+tests/test_distributed.py case).
 """
 import json
 import os
@@ -24,8 +28,10 @@ from repro.models import LM as JLM
 from repro.train import checkpoint as jckpt
 from repro.train import optimizer as jopt
 from repro.train import train_loop as jtl
+import test_torch_dist_ranks as ranks
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import for_arch, make_batch
+from repro_torch.launch.mesh import spawn
 from repro_torch.models import LM
 from repro_torch.models.convert import train_state_from_jax
 from repro_torch.train import tree
@@ -182,3 +188,26 @@ def test_straggler_monitor():
     assert mon.straggler_steps >= 1
     assert sorted(m) == ["median_s", "step_time_s", "straggler",
                          "utilization"]
+
+
+def test_elastic_restore_onto_another_mesh(tmp_path):
+    sharded, plain = tmp_path / "sharded", tmp_path / "plain"
+    want = np.arange(64, dtype=np.float32).reshape(8, 8)
+    saved = spawn(ranks.checkpoint_save, 8, str(sharded), timeout=120)
+    for r, local in enumerate(saved):  # (data=4, model=2) by P(data, model)
+        i, j = divmod(r, 2)
+        assert np.array_equal(local, want[2 * i:2 * i + 2, 4 * j:4 * j + 4])
+    CheckpointManager(str(plain), keep=2, async_save=False).save(
+        1, {"w": torch.from_numpy(want)}, block=True)
+    names = sorted(os.listdir(plain / "step_1"))
+    assert names == sorted(os.listdir(sharded / "step_1"))
+    for name in names:
+        assert (plain / "step_1" / name).read_bytes() == \
+            (sharded / "step_1" / name).read_bytes(), name
+    restored = spawn(ranks.checkpoint_restore, 4, str(sharded), timeout=120)
+    for r, got in enumerate(restored):  # (data=2, model=2) by P(model, data)
+        i, j = divmod(r, 2)
+        assert got["placements"] == got["want"] == ["S(1)", "S(0)"]
+        assert np.array_equal(got["full"], want)
+        assert np.array_equal(got["local"],
+                              want[4 * j:4 * j + 4, 4 * i:4 * i + 4])

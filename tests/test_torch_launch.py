@@ -317,5 +317,35 @@ def test_train_launcher_rows_match_jax(tmp_path):
             assert g[k] == w[k], k
         assert math.isfinite(g["loss"]) and g["grad_norm"] > 0
     assert sorted(os.listdir(tmp_path / "ck")) == ["step_10", "step_20"]
-    with pytest.raises(NotImplementedError, match="12c"):
-        ttrain_launch.main(["--devices", "4", "--device", "cpu"])
+
+
+def _train_rows(argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ttrain_launch.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    return [ast.literal_eval(line) for line in lines[:-1]], lines[-1]
+
+
+def test_train_launcher_sharded_matches_unsharded():
+    """``--devices 4 --data 2 --model 2`` on 4 spawned gloo ranks: rank 0's
+    rows have the unsharded run's steps, tokens and lr, and its loss
+    within 1e-4 relative (the printed values, rounded to 4 places)."""
+    argv = ["--device", "cpu", "--steps", "3", "--seq-len", "32",
+            "--batch", "4"]
+    want, want_tail = _train_rows(argv)
+    got, got_tail = _train_rows(argv + ["--devices", "4", "--data", "2",
+                                        "--model", "2"])
+    assert got_tail == want_tail.replace("on 1 device(s)", "on 4 device(s)")
+    assert len(got) == len(want) == 1
+    for g, w in zip(got, want):
+        assert list(g) == list(w)
+        for k in ("step", "tokens", "lr"):
+            assert g[k] == w[k], k
+        assert abs(g["loss"] - w["loss"]) / w["loss"] < 1e-4
+
+
+def test_train_launcher_devices_must_match_the_mesh():
+    with pytest.raises(ValueError, match="--data 2 x --model 2"):
+        ttrain_launch.main(["--device", "cpu", "--devices", "3", "--data",
+                            "2", "--model", "2"])

@@ -182,7 +182,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      destroyed; (g) ``python -m repro_torch.launch.train --devices 1
      --steps 10`` on the card (its own world of one rank, run beside
      (b)-(f); (a) and (c)'s times are taken after it ends), exit 0 and
-     its loss below a uniform prediction's;
+     its loss below a uniform prediction's; (h) 8 ``decode_step``s of
+     full-width tinyllama-1.1b after a 2 x 64 prefill, with the params and
+     the cache laid out on the mesh (DTensors), every step's logits and
+     the final cache bitwise the plain decode's;
+  3i. (run after 3h) the dry run on the port's own terms, counters set to
+     0 just before and every count 0 just after: (a) in a child process
+     ``python -m chip_smoke --dryrun`` (started with phase 3h and given
+     the chip phase's calibration, so that it fits none), made rank 0 of
+     a fake world of 256 ranks, ``launch.dryrun.run_cell`` of
+     tinyllama-1.1b ``decode_32k`` and ``train_4k`` on pod16x16 at full
+     width, counted at 3 and 4 layers and extrapolated to 22, the chip
+     policy's energy telemetry on the card: both rows ``ok``, printed;
+     (b) ``roofline.op_cost.count`` around one full-width train step of
+     tinyllama-1.1b (3f's shape, 8 x 512 tokens, bf16, remat) on the card
+     and around the same step on ``meta`` stand-ins: flops, traffic and
+     collective bytes equal integers; the step's device ms (its kernels'
+     time in a profile, uncounted) and model FLOPs / (989e12 x device s)
+     printed; the cost of
+     a ``record_function`` scope on the host printed (a decode step enters
+     none);
   4. the ssm path at the full width and depth of falcon-mamba-7b
      (tinyllama freed first), launch counters set to 0 just before:
      ``BatchedServer`` and ``greedy_decode`` as in 3 in bf16, every token
@@ -450,6 +469,15 @@ def bound_of(t_bytes, t_ops):
 # a spin of this many cycles (~0.2 ms) on the card ahead of a run timed
 # for its device work alone
 SPIN_CYCLES = 400_000
+
+
+def kernel_event(e):
+    """A profiler average of kernels on the card: not a host op, and not
+    the device-side span of a ``record_function`` scope (the flash and
+    scan scopes), which would count its kernels' time twice."""
+    from torch.autograd import DeviceType
+    return (e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
 
 
 def time_ms(fn, flush, reps=10, warm=2, spin=False):
@@ -2488,7 +2516,6 @@ def train_full_width(model, dev, smi):
     falling, ``grad_norm`` > 0 each step; step wall and device ms, the
     idle share, tokens/s, model FLOP/s and peak memory.  Returns the final
     state, the step function and the optimizer's config for (c)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import for_arch, make_batch
     from repro_torch.train import tree
@@ -2519,8 +2546,8 @@ def train_full_width(model, dev, smi):
             walls.append(time.perf_counter() - t0)
         if i == profiled:
             kernels = {}  # device-side events only: an op's time is its
-            for e in prof.key_averages():  # kernels'
-                if e.device_type == DeviceType.CUDA:
+            for e in prof.key_averages():  # kernels' (not the device span
+                if kernel_event(e):  # of a record_function scope)
                     kernels[e.key] = kernels.get(e.key, 0.0) \
                         + e.device_time_total / 1e3
             device_ms = sum(kernels.values())
@@ -2905,7 +2932,6 @@ def dist_train_full_width(model, dev, smi, ctx):
     card's activity only: DTensor's host dispatch makes a CPU trace cost
     seconds to read): the loss finite and ``grad_norm`` > 0; step wall and
     device ms, the idle share, peak bytes."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import for_arch, make_batch
     from repro_torch.parallel import sharding as sh
@@ -2942,7 +2968,7 @@ def dist_train_full_width(model, dev, smi, ctx):
                   f"grad_norm {norms[-1]}")
         kernels = {}
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
+            if kernel_event(e):
                 kernels[e.key] = kernels.get(e.key, 0.0) \
                     + e.device_time_total / 1e3
         device_ms = sum(kernels.values())
@@ -3187,6 +3213,8 @@ def distributed_path(model, params, dev, smi, k1):
                                                           timed=False))
             run("pipeline", lambda: dist_pipeline(dev))
             run("policy_matmul_k1", lambda: dist_k1(*k1, ctx))
+            run("decode_on_mesh", lambda: dist_decode(model, params, dev,
+                                                      ctx))
             t0 = time.perf_counter()
             out["launcher"] = dist_launcher_result(child)
             out["launcher_waited_s"] = time.perf_counter() - t0
@@ -3203,6 +3231,192 @@ def distributed_path(model, params, dev, smi, k1):
     emit({"phase": "distributed", "arch": ARCH, "world": 1,
           "backend": "nccl", "seconds": time.perf_counter() - t_phase,
           **out})
+
+
+# (h): 8 decode steps on the (1, 1) mesh after a 2 x 64 prefill
+DIST_DECODE = dict(batch=2, prompt=64, steps=8, max_len=128)
+# 3i (a): the dry run's cells of tinyllama-1.1b on pod16x16 in the child
+DRYRUN_SHAPES = ("decode_32k", "train_4k")
+# 3i (b): record_function scopes timed on the host
+SCOPE_REPS = 20000
+
+
+def dist_decode(model, params, dev, ctx):
+    """(h) DIST_DECODE's decode steps of the full-width model unsharded and
+    with the params and the cache distributed on the (1, 1) mesh: every
+    step's logits and the final cache bitwise equal."""
+    from repro_torch.launch.specs import _cache_specs
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import tree
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    B = DIST_DECODE["batch"]
+    vocab = model.cfg.vocab_size
+    prompt = torch.randint(0, vocab, (B, DIST_DECODE["prompt"]),
+                           generator=gen, device=dev)
+    toks = torch.randint(0, vocab, (DIST_DECODE["steps"], B, 1),
+                         generator=gen, device=dev)
+    _, cache = model.prefill(params, prompt, max_len=DIST_DECODE["max_len"])
+    start = tree.map(torch.clone, cache)
+    want = []
+    for t in toks:
+        logits, cache = model.decode_step(params, cache, t)
+        want.append(logits)
+    with sh.use_mesh(ctx):
+        dp = sh.distribute_tree(
+            params, sh.param_specs(params, model.cfg.n_experts, ctx), ctx)
+        specs = _cache_specs(model, start, B, ctx)
+        dc = tree.map(lambda t, s: sh.redistribute(t, s.mesh, s.placements),
+                      start, specs)
+        got = []
+        for t in toks:
+            logits, dc = model.decode_step(dp, dc, t)
+            got.append(sh.full(logits))
+        caches = {k: sh.full(v) for k, v in dc.data.items()}
+    torch.cuda.synchronize()
+    differ = [i for i, (a, b) in enumerate(zip(want, got))
+              if not torch.equal(bits(a), bits(b))]
+    cache_differ = [k for k, v in cache.data.items()
+                    if not torch.equal(bits(v), bits(caches[k]))]
+    check(not differ and not cache_differ, f"decode on the mesh: steps "
+          f"{differ} and caches {cache_differ} differ from the plain decode")
+    return dict(**DIST_DECODE, steps_bitwise=len(want), caches_bitwise=sorted(
+        caches), length=int(sh.full(dc.length)))
+
+
+def dryrun_child(tech_values):
+    """3i (a), run as ``python -m chip_smoke --dryrun TECH``: this process
+    made rank 0 of a fake world of 256 ranks, ``run_cell`` of each of
+    DRYRUN_SHAPES for tinyllama-1.1b on pod16x16 at full width (counted at
+    the dry run's default depths), the chip policy on the card from the
+    calibration ``TECH`` (``TechParams.values`` as JSON).  Prints one JSON
+    line per row."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.energy_model import TechParams
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    fake_world(256)
+    tech = TechParams(tuple(json.loads(tech_values)))
+    for shape in DRYRUN_SHAPES:
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(ARCH, shape, device="cuda", tech=tech,
+                              verbose=False)
+        print(json.dumps(dict(row, seconds=time.perf_counter() - t0)),
+              flush=True)
+    return 0
+
+
+def dryrun_result(child):
+    """3i (a)'s gates on the child's rows."""
+    lines, wall = child.finish()
+    rows = [json.loads(x) for x in lines if x.startswith("{")]
+    check([r.get("shape") for r in rows] == list(DRYRUN_SHAPES),
+          f"dryrun child: {lines[-3:]}")
+    for r in rows:
+        check(r["status"] == "ok" and r["mesh"] == "pod16x16"
+              and r["chips"] == 256 and r["flops_per_device"] > 0
+              and r["chip_energy"]["unit"] == r["fpu_unit"],
+              f"dryrun row {r['shape']}: {r}")
+    keep = ("shape", "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "collective_breakdown",
+            "model_flops", "bottleneck", "roofline_fraction",
+            "fpu_unit", "memory", "counted_depths",
+            "lower_s", "compile_s", "seconds")
+    rows = [{k: r.get(k) for k in keep} for r in rows]
+    return dict(rows=rows, wall_s=wall)
+
+
+def dryrun_count_vs_meta(model, dev, smi):
+    """3i (b): ``op_cost.count`` of one full-width train step on the card
+    and of the same step on meta stand-ins, equal; the step's device
+    time (its kernels' in a profile) and model FLOP share of the bf16
+    peak."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import for_arch, make_batch
+    from repro_torch.models import LM
+    from repro_torch.roofline.analysis import model_flops_estimate
+    from repro_torch.roofline.op_cost import count
+    from repro_torch.train import tree
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import make_train_state, make_train_step
+    cfg = model.cfg
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                      total_steps=TRAIN["steps"])
+    batch = make_batch(for_arch(cfg, seq_len=TRAIN["seq_len"],
+                                global_batch=TRAIN["batch"]), 0, dev)
+    step = make_train_step(model, opt)
+    state = make_train_state(model, SEED, opt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, card = count(step, state, batch)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    meta_model = LM(cfg, device="meta")
+    meta_state = make_train_state(meta_model, SEED, opt)
+    meta_batch = tree.map(lambda t: torch.empty_like(t, device="meta"),
+                          batch)
+    t0 = time.perf_counter()
+    _, meta = count(make_train_step(meta_model, opt), meta_state,
+                    meta_batch)
+    meta_s = time.perf_counter() - t0
+    fields = ("flops", "traffic_bytes", "collective_bytes")
+    got = {f: getattr(card, f) for f in fields}
+    want = {f: getattr(meta, f) for f in fields}
+    check(got == want, f"op_cost on the card {got} and on meta stand-ins "
+          f"{want} differ")
+    check(card.flops > 0 and float(card.flops).is_integer()
+          and float(card.traffic_bytes).is_integer(),
+          f"op_cost counts not positive integers: {got}")
+    step(state, batch)  # the step uncounted, warm, then its kernels' time
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    device_ms = sum(e.device_time_total for e in prof.key_averages()
+                    if kernel_event(e)) / 1e3
+    mflops = model_flops_estimate(cfg, ShapeSpec(
+        "train", TRAIN["seq_len"], TRAIN["batch"], "train"))
+    del state
+    release()
+    return dict(tokens=TRAIN["batch"] * TRAIN["seq_len"],
+                flops=card.flops, traffic_bytes=card.traffic_bytes,
+                collective_bytes=card.collective_bytes,
+                scope_traffic=card.scope_traffic,
+                peak_live_bytes=card.peak_live_bytes, counted_s=counted_s,
+                meta_counted_s=meta_s, step_device_ms=device_ms,
+                model_flops=mflops,
+                model_flops_share_of_bf16_peak=mflops / (
+                    PEAK_OPS_PER_S["bf16"] * device_ms / 1e3),
+                model_flops_share_note="6 N T / (989e12 x the step's "
+                                       "kernel seconds)", card=smi)
+
+
+def scope_cost_us():
+    """The host cost of one ``record_function`` scope, microseconds (the
+    median of 5 runs of SCOPE_REPS)."""
+    from torch.profiler import record_function
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(SCOPE_REPS):
+            with record_function("selective_scan_kernel"):
+                pass
+        runs.append((time.perf_counter() - t0) / SCOPE_REPS * 1e6)
+    return float(np.median(runs))
+
+
+def dryrun_path(model, dev, smi, child):
+    """Phase 3i: (b), then (a)'s child read."""
+    t_phase = time.perf_counter()
+    out = {"count_vs_meta": dryrun_count_vs_meta(model, dev, smi),
+           "record_function_us": scope_cost_us(),
+           "decode_step_scopes": 0}
+    t0 = time.perf_counter()
+    out["child"] = dryrun_result(child)
+    out["child_waited_s"] = time.perf_counter() - t0
+    emit({"phase": "dryrun", "arch": ARCH, "seconds":
+          time.perf_counter() - t_phase, **out})
 
 
 def serve_f32(cfg, params, dev, layers=None, **kw):
@@ -3733,7 +3947,6 @@ def profile_decode(model, params, rng):
     """Device time by kernel over one decode step at batch 4, native and
     under EmulatedPolicy(bf16, fused); the idle share is 1 - device time /
     host wall time of the step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.numerics import EmulatedPolicy
     cfg, dev = model.cfg, model.device
@@ -3754,7 +3967,7 @@ def profile_decode(model, params, rng):
             wall = time.perf_counter() - t0
         kernels = {}  # device-side events only: an op's time is its kernels'
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+            if kernel_event(e) and e.device_time_total > 0:
                 kernels[e.key] = kernels.get(e.key, 0.0) + e.device_time_total
         total_us = sum(kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
@@ -4877,16 +5090,30 @@ def main():
                             lambda: train_path(model, params, dev, smi))
     check(not any(train_counts.values()),
           f"the train path launched {train_counts}")
-    # distribution on a world of one NCCL rank: only (f)'s policy matmul
-    # on the mesh launches a kernel, K1 once; its unsharded K1 reference
-    # runs before the window
-    k1_dist = dist_k1_operands(params, dev)
-    dist_counts, _ = drive(
-        f"{ARCH} distributed", ("fused_qmm",),
-        lambda: distributed_path(model, params, dev, smi, k1_dist))
-    check(dist_counts["fused_qmm"] == 1 and sum(dist_counts.values()) == 1,
-          f"the distributed path launched {dist_counts}")
-    del k1_dist
+    # the dry run's child (3i (a)) counts on the host while 3h runs; its
+    # chip policy's few seconds on the card come before 3h's timed steps
+    dry_child = Launcher("chip_smoke", "--dryrun",
+                         json.dumps(list(tech.values)))
+    try:
+        # distribution on a world of one NCCL rank: only (f)'s policy
+        # matmul on the mesh launches a kernel, K1 once; its unsharded K1
+        # reference runs before the window
+        k1_dist = dist_k1_operands(params, dev)
+        dist_counts, _ = drive(
+            f"{ARCH} distributed", ("fused_qmm",),
+            lambda: distributed_path(model, params, dev, smi, k1_dist))
+        check(dist_counts["fused_qmm"] == 1
+              and sum(dist_counts.values()) == 1,
+              f"the distributed path launched {dist_counts}")
+        del k1_dist
+        # the dry run launches none of K1-K6
+        dry_counts, _ = drive(f"{ARCH} dryrun", (),
+                              lambda: dryrun_path(model, dev, smi,
+                                                  dry_child))
+        check(not any(dry_counts.values()),
+              f"the dryrun path launched {dry_counts}")
+    finally:
+        dry_child.close()
     specs = benchgen_specs()
     machine = calibrate(device=dev)  # launches K2: outside the window
     _, (bench,) = drive(
@@ -4949,5 +5176,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(train_restart_child() if sys.argv[1:] == ["--train-restart"]
-             else main())
+    if sys.argv[1:] == ["--train-restart"]:
+        sys.exit(train_restart_child())
+    if sys.argv[1:2] == ["--dryrun"] and len(sys.argv) == 3:
+        sys.exit(dryrun_child(sys.argv[2]))
+    sys.exit(main())

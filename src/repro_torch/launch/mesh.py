@@ -14,6 +14,15 @@ processes joined in one process group through a file store in a temporary
 directory (no network), runs ``fn(rank, *args)`` on each and returns their
 results.  A rank that raises fails the call with its traceback; a rank
 that dies or hangs fails it at the timeout, and every process is stopped.
+
+``fake_world(n)`` stands in for the JAX package's forced host-device count
+(``launch/xla_flags.py``) where only one rank's work is wanted, as in the
+dry run: this process becomes rank 0 of n on torch's fake backend, whose
+collectives return at once without moving data.  A process has one
+default group, so the dry run and the hillclimb run in a process of their
+own.  Meshes on it are "cuda" meshes (what the card's NCCL runs: DTensor
+on a "cpu" mesh replaces all-to-all by all-gather and chunk), which build
+with no card and take ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -47,9 +56,23 @@ def _make_mesh(shape, axes):
     if world != n:
         raise ValueError(f"the mesh {dict(zip(axes, shape))} has {n} "
                          f"devices, the process group {world} ranks")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = "cpu" if dist.get_backend() == "gloo" else "cuda"
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
+
+
+def fake_world(n: int) -> None:
+    """Make this process rank 0 of a process group of ``n`` ranks on
+    torch's fake backend (its collectives move nothing); a no-op when such
+    a world is already up."""
+    if dist.is_initialized():
+        if dist.get_backend() == "fake" and dist.get_world_size() == n:
+            return
+        raise RuntimeError(f"a process group of {dist.get_world_size()} "
+                           f"ranks on {dist.get_backend()} is already up")
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
 
 
 def make_production_mesh(*, multi_pod: bool = False):

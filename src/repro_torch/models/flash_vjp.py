@@ -15,16 +15,26 @@ plain PyTorch, as the JAX function is plain ``jnp``.
 
 Called with grad off or on inputs that need none (serving), it runs the
 plain forward, so the served numbers do not depend on this module.
+
+The forward and the backward each run inside a
+``record_function("flash_attention_kernel")`` scope, the JAX package's
+named scope, which ``roofline.fused_model`` reads (a backward that
+autograd runs does not inherit the forward's scope, so it opens its own).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.models.attention import (NEG_INF, _blocks, block_mask,
                                           flash_attention, flash_blocks,
                                           unblock)
+
+
+#: the JAX package's named scope around the flash forward and backward
+SCOPE = "flash_attention_kernel"
 
 
 def _flash_backward(qb, kb, vb, outs, lses, do, *, scale, causal, window,
@@ -74,7 +84,8 @@ class _Flash(torch.autograd.Function):
         qb, kb, vb, _, _ = _blocks(q, k, v, block_q, block_k)
         kw = dict(scale=1.0 / math.sqrt(D), causal=causal, window=window,
                   kv_len=kv_len, q_offset=q_offset)
-        outs, lses = flash_blocks(qb, kb, vb, with_lse=True, **kw)
+        with record_function(SCOPE):
+            outs, lses = flash_blocks(qb, kb, vb, with_lse=True, **kw)
         ctx.save_for_backward(qb, kb, vb, outs, lses)
         ctx.kw = kw
         ctx.shapes = (q.shape, k.shape, q.dtype, k.dtype, v.dtype)
@@ -90,7 +101,9 @@ class _Flash(torch.autograd.Function):
         do = torch.nn.functional.pad(grad_out.to(torch.float32),
                                      (0, 0, 0, 0, 0, nq * bq - Sq))
         do = do.reshape(B, nq, bq, Hkv, G, D).permute(0, 1, 3, 4, 2, 5)
-        dq, dk, dv = _flash_backward(qb, kb, vb, outs, lses, do, **ctx.kw)
+        with record_function(SCOPE):
+            dq, dk, dv = _flash_backward(qb, kb, vb, outs, lses, do,
+                                         **ctx.kw)
         dq = dq.reshape(B, nq * bq, Hq, D)[:, :Sq].to(qt)
         dk = dk.reshape(B, -1, Hkv, D)[:, :Sk].to(kt)
         dv = dv.reshape(B, -1, Hkv, D)[:, :Sk].to(vt)
@@ -106,8 +119,9 @@ def flash_attention_trainable(q, k, v, *, causal: bool = True,
     kv_len = k.shape[1] if kv_len is None else kv_len
     if not (torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, kv_len=kv_len,
-                               block_q=block_q, block_k=block_k)
+        with record_function(SCOPE):
+            return flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len,
+                                   block_q=block_q, block_k=block_k)
     return _Flash.apply(q, k, v, causal, window, kv_len, q_offset, block_q,
                         block_k)

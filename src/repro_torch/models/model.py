@@ -24,6 +24,7 @@ the caller's storage.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import torch
@@ -77,13 +78,14 @@ def _whole_layer_axis(t):
 
 def _layer(tree: Dict, i: int) -> Dict:
     """Layer ``i``'s slice of the stacked parameter tree."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+    return {k: _layer(v, i) if isinstance(v, dict)
+            else _whole_layer_axis(v)[i] for k, v in tree.items()}
 
 
 def _refuse_mesh(what: str):
-    """Decode and chunked prefill write the plain decode cache in place,
-    which a DTensor cannot be; they run without a mesh only."""
+    """Chunked prefill gathers and writes cache lanes picked by slot ids
+    (``slot_ids``), which no per-rank shard of the cache maps onto; it runs
+    without a mesh only (``decode_step`` writes each rank's shard)."""
     if sh.active() is not None:
         raise RuntimeError(f"{what} writes the decode cache in place and "
                            f"does not run under a mesh; call it outside "
@@ -170,16 +172,35 @@ def attn_block_init(gen: torch.Generator, cfg: ArchConfig, dtype,
     return p
 
 
+def _split_heads(t, B, S, n, hd):
+    """(B, S, n * hd) -> (B, S, n, hd).  Under a mesh, a feature dim
+    sharded over mesh axes whose size does not divide ``n`` is gathered
+    first (DTensor cannot split it into uneven head shards; GSPMD gathers
+    it too, by a full rematerialization), and the caller's ``shard``
+    places the heads after the split."""
+    if sh.is_dtensor(t):
+        mesh, last = t.device_mesh, t.dim() - 1
+        over = [i for i, p in enumerate(t.placements) if p.is_shard(last)]
+        if n % math.prod(mesh.shape[i] for i in over):
+            from torch.distributed.tensor import Replicate
+            t = t.redistribute(mesh, [Replicate() if i in over else p
+                                      for i, p in enumerate(t.placements)])
+    return t.reshape(B, S, n, hd)
+
+
 def _qkv(p, h, cfg: ArchConfig, positions, policy):
     B, S, _ = h.shape
+    # under a mesh, the projections' input gathered over the model axis, as
+    # the MLP's is (``_ffn``)
+    h = shard(h, "batch", None, None)
     q = matmul(h, p["wq"], policy)
     k = matmul(h, p["wk"], policy)
     v = matmul(h, p["wv"], policy)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(q, B, S, cfg.n_heads, cfg.head_dim)
+    k = _split_heads(k, B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(v, B, S, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_style)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_style)
     return q, k, v
@@ -204,17 +225,56 @@ def _ffn(p, h2, cfg: ArchConfig, policy):
                 capacity_factor=cfg.capacity_factor)
         return moe_apply(p["moe"], h2, top_k=cfg.experts_per_token,
                          capacity_factor=cfg.capacity_factor)
+    # under a mesh, the MLP's input gathered over the model axis (Megatron's
+    # layout, which GSPMD picks): DTensor's own choice after a
+    # sequence-sharded residual can replicate the whole MLP over 'model'
+    h2 = shard(h2, "batch", None, None)
     return mlp_apply(p["mlp"], h2, cfg.mlp_act, policy), {"aux_loss": 0.0}
+
+
+def _embed(table, tokens):
+    """``embed_apply``; under a mesh a lookup per rank of its batch shard
+    of ``tokens`` in the table gathered to ``Replicate``, whose gradient
+    comes back as a partial sum over the batch axes (DTensor's own
+    lookup and its backward in torch 2.11 fail on a sharded table)."""
+    if not sh.is_dtensor(table):
+        return embed_apply(table, tokens)
+    ctx = sh.active()
+    mesh = ctx.mesh
+    tl = sh.to_local(tokens, mesh, sh.spec_for(
+        ("batch",) + (None,) * (tokens.dim() - 1), tuple(tokens.shape), ctx))
+    out = embed_apply(sh.to_local(table, mesh, sh.P(), ctx.batch_axes), tl)
+    shape = tuple(tokens.shape) + (table.shape[-1],)
+    return sh.from_local(out, mesh, sh.spec_for(
+        ("batch",) + (None,) * (len(shape) - 1), shape, ctx))
+
+
+def _add_residual(x, y):
+    """``x + y``.  Under a mesh ``y`` is first laid out as ``x`` (a partial
+    sum reduced into the residual's layout), and its gradient is gathered
+    over the model axis on the way back: the projection that made ``y``
+    then takes a gathered gradient (DTensor's own choice would gather its
+    weight and the heads instead, and torch 2.11's DTensor can neither
+    flatten a sequence-sharded gradient into a matmul's rows nor turn a
+    shard back into a partial sum)."""
+    if not sh.is_dtensor(x):
+        return x + y
+    y = sh.redistribute(y, x.device_mesh, x.placements)
+    return x + sh.grad_to(y, "batch", None, None)
 
 
 def _residual_ffn(p, x, attn, cfg: ArchConfig, policy):
     """x + wo(attn), then + ffn(norm): the block's second half.  Returns
     (out, aux)."""
     B, S = attn.shape[:2]
-    x = x + matmul(attn.reshape(B, S, -1), p["wo"], policy)
+    # under a mesh, the heads merged and sharded over the model axis (with
+    # heads that the axis does not divide, the merge's backward then gets
+    # a gathered gradient, which it can split into heads)
+    flat = shard(attn.reshape(B, S, -1), "batch", None, "tensor")
+    x = _add_residual(x, matmul(flat, p["wo"], policy))
     h2 = rmsnorm(p["ln2"], x)
     ff, aux = _ffn(p, h2, cfg, policy)
-    return x + ff, aux
+    return _add_residual(x, ff), aux
 
 
 def _attend(q, k, v, cfg: ArchConfig, triangle_skip: bool):
@@ -278,7 +338,6 @@ def attn_block_decode(p, x, k_cache, v_cache, cache_len, cfg: ArchConfig, *,
     Smax = k_cache.shape[1]
     h = rmsnorm(p["ln1"], x)
     q, k, v = _qkv(p, h, cfg, cache_len[:, None], policy)
-    lanes = torch.arange(B, device=x.device)
     if ring:
         idx = cache_len % Smax
         keep = torch.ones_like(cache_len, dtype=torch.bool)
@@ -287,15 +346,103 @@ def attn_block_decode(p, x, k_cache, v_cache, cache_len, cfg: ArchConfig, *,
         keep = cache_len < Smax
     if write_mask is not None:
         keep = keep & write_mask
+    valid = torch.clamp(cache_len + 1, max=Smax)
+    window = 0 if ring else cfg.window
+    if sh.is_dtensor(k_cache):
+        for cache, fresh in ((k_cache, k), (v_cache, v)):
+            _write_shard(cache, fresh, idx, keep)
+        attn = _decode_attention_shards(q, k_cache, v_cache, valid, window)
+        attn = shard(attn, "batch", None, "tensor", None)
+        return _residual_ffn(p, x, attn, cfg, policy)[0]
+    lanes = torch.arange(B, device=x.device)
     keep = keep[:, None, None]
     k_cache[lanes, idx] = torch.where(keep, to_cache(k[:, 0], k_cache.dtype),
                                       k_cache[lanes, idx])
     v_cache[lanes, idx] = torch.where(keep, to_cache(v[:, 0], v_cache.dtype),
                                       v_cache[lanes, idx])
-    valid = torch.clamp(cache_len + 1, max=Smax)
-    attn = decode_attention(q, k_cache, v_cache, valid,
-                            window=0 if ring else cfg.window)
+    attn = decode_attention(q, k_cache, v_cache, valid, window=window)
     return _residual_ffn(p, x, attn, cfg, policy)[0]
+
+
+def _shard_view(cache, like):
+    """``like`` (B, 1, H, D) laid out as ``cache`` (B, Smax, Hkv, D) lays out
+    its lanes, heads and head dims (replicated over the mesh axes that
+    shard the sequence), and this rank's local tensors: (like's shard,
+    cache's shard, the cache shard's global offsets, like's placements)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    pl = [Shard(p.dim) if p.is_shard() and p.dim != 1 else Replicate()
+          for p in cache.placements]
+    _, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    return (like.redistribute(mesh, pl).to_local(), cache.to_local(), offset,
+            pl)
+
+
+def _write_shard(cache, fresh, idx, keep):
+    """Under a mesh, each rank writes ``fresh`` (B, 1, Hkv, D) into its own
+    shard of ``cache`` (B, Smax, Hkv, D) at each lane's position ``idx``
+    where ``keep``: its own lanes, heads or head dims; where the sequence
+    is sharded only the rank that holds position ``idx`` writes, at its
+    local index."""
+    f, c, (b0, s0, _, _), _ = _shard_view(cache, fresh)
+    idx, keep = sh.full(idx), sh.full(keep)
+    nb, ns = c.shape[:2]
+    local = idx[b0:b0 + nb] - s0
+    keep = keep[b0:b0 + nb] & (local >= 0) & (local < ns)
+    local = local.clamp(0, ns - 1)
+    lanes = torch.arange(nb, device=c.device)
+    c[lanes, local] = torch.where(keep[:, None, None],
+                                  to_cache(f[:, 0], c.dtype), c[lanes, local])
+
+
+def _decode_attention_shards(q, k_cache, v_cache, valid, window):
+    """``decode_attention`` per rank over a sharded cache: lanes and kv
+    heads (q's heads with them) are local; a head dim sharded over a mesh
+    axis sums the scores across it; a sequence sharded over a mesh axis
+    takes the row max and the exp sum across it before dividing, the
+    unsharded softmax's order, and sums the p @ v partials.  Returns a
+    DTensor laid out as the cache's lanes, heads and head dims."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.attention import NEG_INF, _f32
+    mesh = k_cache.device_mesh
+    ql, kc, (b0, s0, _, _), pl = _shard_view(k_cache, q)
+    vc = v_cache.to_local()
+    B, Smax, Hkv, D = kc.shape
+    G = ql.shape[2] // Hkv
+    groups = {dim: [mesh.get_group(i) for i, p in
+                    enumerate(k_cache.placements) if p.is_shard(dim)]
+              for dim in (1, 3)}
+
+    def reduce(t, op, dim):
+        for g in groups[dim]:
+            dist.all_reduce(t, op=op, group=g)
+        return t
+
+    scale = 1.0 / math.sqrt(q.shape[3])
+    qg = _f32(ql.reshape(B, Hkv, G, D))
+    s = reduce(torch.einsum("bhgd,bkhd->bhgk", qg, _f32(kc.to(q.dtype))),
+               dist.ReduceOp.SUM, 3) * scale
+    k_pos = s0 + torch.arange(Smax, device=kc.device)
+    cl = sh.full(valid)[b0:b0 + B].reshape(-1, 1)
+    ok = k_pos[None, :] < cl
+    if window:
+        ok = ok & (k_pos[None, :] >= cl - window)
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    if not groups[1]:
+        p = torch.softmax(s, dim=-1)
+    else:
+        m = reduce(s.amax(dim=-1, keepdim=True), dist.ReduceOp.MAX, 1)
+        e = torch.exp(s - m)
+        p = e / reduce(e.sum(dim=-1, keepdim=True), dist.ReduceOp.SUM, 1)
+    out = torch.einsum("bhgk,bkhd->bhgd", _f32(p.to(q.dtype)),
+                       _f32(vc.to(q.dtype)))
+    out = reduce(out, dist.ReduceOp.SUM, 1).reshape(B, 1, Hkv * G, D)
+    return DTensor.from_local(out.to(q.dtype), mesh, pl, run_check=False,
+                              shape=q.shape, stride=q.stride())
 
 
 def _chunk_attn_block(p, x, k_cache, v_cache, offsets, chunk_lens, positions,
@@ -377,33 +524,169 @@ def _mamba(p, h, cfg: ArchConfig, state, return_state: bool):
                             head_dim=cfg.ssm_head_dim, **kw)
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """The sum over a group of per-rank partial sums that each rank then
+    uses in its own way: the backward sums the ranks' gradients too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ChannelShards:
+    """Rank ``r`` of ``n`` along the model axis, holding one shard of a
+    mamba block's inner channels (``ssm.mamba1_apply``'s ``shards``)."""
+
+    def __init__(self, group, n: int, r: int):
+        self.group, self.n, self.r = group, n, r
+
+    def psum(self, t):
+        return _SumOverRanks.apply(t, self.group)
+
+    def gather(self, t):
+        from repro_torch.models.moe_sharded import _GatherOver
+        return _GatherOver.apply(t, self.group, t.dim() - 1)
+
+    def slices(self, width: int, base: int = 0):
+        """This shard's columns of a run of ``width`` starting at ``base``."""
+        w = width // self.n
+        return slice(base + self.r * w, base + (self.r + 1) * w)
+
+
+def _channel_sharded(cfg: ArchConfig, n: int) -> bool:
+    """The mamba block's channels (and, for Mamba-2, heads and B/C
+    channels) split evenly into ``n`` shards."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    if n < 2 or d_in % n:
+        return False
+    return cfg.ssm_version == 1 or (
+        (d_in // cfg.ssm_head_dim) % n == 0 and (2 * cfg.ssm_state) % n == 0)
+
+
+def _shard_params(p, cfg: ArchConfig, sd: _ChannelShards):
+    """This shard's slice of a mamba block's whole parameters: its inner
+    channels (for Mamba-2 its heads' channels, B/C channels and dt
+    columns), with ``in_proj``'s and ``conv_w``'s pieces concatenated in
+    the unsharded order."""
+    d_in = p["out_proj"].shape[0]
+    ch = sd.slices(d_in)
+    if cfg.ssm_version == 1:
+        w = p["in_proj"]
+        return {"in_proj": torch.cat([w[:, ch], w[:, sd.slices(d_in, d_in)]],
+                                     dim=-1),
+                "conv_w": p["conv_w"][:, ch], "conv_b": p["conv_b"][ch],
+                "x_proj": p["x_proj"][ch], "dt_proj": p["dt_proj"][:, ch],
+                "dt_bias": p["dt_bias"][ch], "A_log": p["A_log"][ch],
+                "D": p["D"][ch], "out_proj": p["out_proj"][ch]}
+    bc = 2 * cfg.ssm_state
+    H = d_in // cfg.ssm_head_dim
+    hs = sd.slices(H)
+    w = p["in_proj"]  # columns: z, x, B and C, dt
+    cw, cb = p["conv_w"], p["conv_b"]  # channels: x, B and C
+    return {"in_proj": torch.cat([w[:, ch], w[:, sd.slices(d_in, d_in)],
+                                  w[:, sd.slices(bc, 2 * d_in)],
+                                  w[:, sd.slices(H, 2 * d_in + bc)]], dim=-1),
+            "conv_w": torch.cat([cw[:, ch], cw[:, sd.slices(bc, d_in)]], -1),
+            "conv_b": torch.cat([cb[ch], cb[sd.slices(bc, d_in)]]),
+            "A_log": p["A_log"][hs], "dt_bias": p["dt_bias"][hs],
+            "D": p["D"][hs], "norm": {"scale": p["norm"]["scale"][ch]},
+            "out_proj": p["out_proj"][ch]}
+
+
 def _mamba_per_rank(p, h, cfg: ArchConfig, state, return_state: bool):
-    """The mamba block under a mesh, run per rank on its batch shard: the
+    """The mamba block under a mesh, run per rank on its batch shard.  The
     parameters are gathered to ``Replicate`` (the chunked scan's slices,
     pads and concatenations of the state expansion have no DTensor
-    sharding rule, and a channel split would need the ``x_proj`` and
-    ``in_proj`` contractions summed inside every chunk).  Returns what
-    ``_mamba`` returns, as DTensors sharded over the batch axes."""
+    sharding rule).  When the model axis splits the inner channels evenly
+    (``_channel_sharded``), each of its ranks runs one shard of them, as
+    GSPMD partitions the JAX block: the contractions over the channels
+    (x_proj's inside every scan chunk, Mamba-2's gated norm) are summed
+    over the axis and out_proj's product leaves as a partial sum; the
+    decode states keep the cache's layout (``launch.specs``: channels, or
+    heads, on the model axis).  Otherwise each rank runs the whole block.
+    Returns what ``_mamba`` returns, as DTensors."""
+    from torch.distributed.tensor import DTensor, Partial
     from repro_torch.train import tree as tree_util
     ctx = sh.active()
     mesh = ctx.mesh
+    names = list(sh.mesh_axes(mesh))
+    n = ctx.tensor_size
+    sd = None
+    if _channel_sharded(cfg, n):
+        sd = _ChannelShards(mesh.get_group(names.index(ctx.tensor_axis)), n,
+                            mesh.get_local_rank(ctx.tensor_axis))
+
+    def spec(logical, shape):
+        return sh.spec_for(logical, tuple(shape), ctx)
 
     def batch_spec(shape):
-        return sh.spec_for(("batch",) + (None,) * (len(shape) - 1),
-                           tuple(shape), ctx)
+        return spec(("batch",) + (None,) * (len(shape) - 1), shape)
 
-    leaves = [sh.to_local(t, mesh, sh.P(), ctx.batch_axes)
+    model = (ctx.tensor_axis,) if sd is not None else ()
+    leaves = [sh.to_local(t, mesh, sh.P(), ctx.batch_axes + model)
               for t in tree_util.leaves(p)]
-    local_state = None if state is None else tuple(
-        sh.to_local(t, mesh, batch_spec(t.shape)) for t in state)
-    out = _mamba(tree_util.unflatten(p, leaves),
-                 sh.to_local(h, mesh, batch_spec(h.shape)), cfg, local_state,
-                 return_state)
-    flat = [out[0], *out[1]] if return_state else [out]
-    # each leads with the batch
-    glob = [sh.from_local(t, mesh, batch_spec((h.shape[0],) + t.shape[1:]))
-            for t in flat]
-    return (glob[0], tuple(glob[1:])) if return_state else glob[0]
+    whole = tree_util.unflatten(p, leaves)
+    hl = sh.to_local(h, mesh, batch_spec(h.shape), model)
+    if sd is None:
+        local_state = None if state is None else tuple(
+            sh.to_local(t, mesh, batch_spec(t.shape)) for t in state)
+        out = _mamba(whole, hl, cfg, local_state, return_state)
+        flat = [out[0], *out[1]] if return_state else [out]
+        # each leads with the batch
+        glob = [sh.from_local(t, mesh,
+                              batch_spec((h.shape[0],) + t.shape[1:]))
+                for t in flat]
+        return (glob[0], tuple(glob[1:])) if return_state else glob[0]
+
+    d_in = cfg.ssm_expand * cfg.d_model
+    v1 = cfg.ssm_version == 1
+    conv_logical = ("batch", None, "tensor" if v1 else None)
+    h_logical = ("batch", "tensor") + (None,) * (1 if v1 else 2)
+    local_state = None
+    if state is not None:
+        conv, hs = state
+        conv = sh.to_local(conv, mesh, spec(conv_logical, conv.shape))
+        if not v1:  # this shard's x and B/C channels of the whole carry
+            conv = torch.cat([conv[..., sd.slices(d_in)], conv[
+                ..., sd.slices(2 * cfg.ssm_state, d_in)]], dim=-1)
+        local_state = (conv, sh.to_local(hs, mesh, spec(h_logical,
+                                                        hs.shape)))
+    kw = dict(state=local_state, return_state=return_state,
+              chunk=cfg.ssm_scan_chunk, shards=sd)
+    local = _shard_params(whole, cfg, sd)
+    if v1:
+        out = ssm.mamba1_apply(local, hl, d_state=cfg.ssm_state, **kw)
+    else:
+        out = ssm.mamba2_apply(local, hl, d_state=cfg.ssm_state,
+                               head_dim=cfg.ssm_head_dim, **kw)
+    y = out[0] if return_state else out
+    pl = list(sh.placements(batch_spec(h.shape), mesh))
+    pl[names.index(ctx.tensor_axis)] = Partial()
+    y = DTensor.from_local(y, mesh, pl, run_check=False, shape=h.shape,
+                           stride=h.stride())
+    if not return_state:
+        return y
+    conv, hs = out[1]
+    B = h.shape[0]
+    if not v1:  # the whole carry, each shard's x and B/C channels joined
+        conv = torch.cat([sd.gather(conv[..., :d_in // n]),
+                          sd.gather(conv[..., d_in // n:])], dim=-1)
+    conv_shape = (B,) + tuple(conv.shape[1:-1]) + (
+        conv.shape[-1] * n if v1 else conv.shape[-1],)
+    hs_shape = (B, hs.shape[1] * n) + tuple(hs.shape[2:])
+    return y, (sh.from_local(conv, mesh, spec(conv_logical, conv_shape)),
+               sh.from_local(hs, mesh, spec(h_logical, hs_shape)))
 
 
 def ssm_block_apply(p, x, cfg: ArchConfig, state=None,
@@ -415,8 +698,8 @@ def ssm_block_apply(p, x, cfg: ArchConfig, state=None,
     out = run(p["mamba"], h, cfg, state, return_state)
     if return_state:
         y, new_state = out
-        return shard(x + y, "batch", "tensor", None), new_state
-    return shard(x + out, "batch", "tensor", None)
+        return shard(_add_residual(x, y), "batch", "tensor", None), new_state
+    return shard(_add_residual(x, out), "batch", "tensor", None)
 
 
 # ---------------------------------------------------------------------------
@@ -509,7 +792,7 @@ class LM:
         if frame_embeds is not None:
             x = frame_embeds.to(self.dtype)
         else:
-            x = embed_apply(params["embed"], tokens)
+            x = _embed(params["embed"], tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(self.dtype), x], dim=1)
         return shard(x, "batch", None, None)
@@ -566,8 +849,16 @@ class LM:
             x = x[torch.arange(B, device=x.device), last_index][:, None]
         elif logits_last_only:
             x = x[:, -1:]
-        logits = shard(unembed_apply(params["embed"], x, policy), "batch",
-                       None, "tensor")
+        # under a mesh, the unembed's input gathered over the model axis
+        # (the blocks leave the sequence sharded on it, which DTensor
+        # cannot flatten into a matmul's rows in every torch release)
+        x = shard(x, "batch", None, None)
+        # (and the tied table's gradient from the unembed laid out as the
+        # table, as the lookup's comes back: torch 2.11's DTensor cannot
+        # add a shard to a partial sum)
+        table = sh.grad_to(params["embed"], "tensor", "fsdp")
+        logits = shard(unembed_apply(table, x, policy), "batch", None,
+                       "tensor")
         return (logits, aux) + ((kv,) if collect_kv else ()) \
             + ((states,) if collect_states else ())
 
@@ -675,6 +966,11 @@ class LM:
         labels = batch["labels"]
         if logits.shape[1] != labels.shape[1]:
             logits = logits[:, logits.shape[1] - labels.shape[1]:]
+            if sh.is_dtensor(logits):
+                # DTensor's sharding rule for log_softmax runs the op on a
+                # fake tensor of the mesh's device type, and on a strided
+                # one a torch built without CUDA cannot for a "cuda" mesh
+                logits = logits.contiguous()
         mask = (labels >= 0).to(torch.float32)
         safe = labels.clamp(min=0)
         logp = torch.log_softmax(logits, dim=-1)
@@ -682,6 +978,12 @@ class LM:
         denom = torch.clamp(mask.sum(), min=1.0)
         ce = -(ll * mask).sum() / denom
         zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2 * mask) * 1e-4
+        if sh.is_dtensor(ce):
+            # a sum and a mean over sharded dims are partial sums of two
+            # kinds, which DTensor in torch 2.11 cannot add: reduce both
+            mesh = ce.device_mesh
+            ce, zl = (sh.redistribute(t, mesh, sh.placements(sh.P(), mesh))
+                      for t in (ce, zl))
         aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
         loss = ce + zl + 0.01 * aux
         return loss, {"ce": ce, "z_loss": zl, "aux_loss": aux,
@@ -751,10 +1053,22 @@ class LM:
         """tokens: (B,1) -> (logits (B,1,V), cache advanced by one).
 
         The cache is written in place; ``write_mask`` (B,) bool leaves the
-        cache bits of masked-off lanes untouched."""
-        _refuse_mesh("decode_step")
+        cache bits of masked-off lanes untouched.  Under a mesh the cache's
+        leaves are DTensors laid out as ``launch.specs`` lays them out, and
+        each rank writes its own shard."""
+        with sh.mesh_region():
+            return self._decode_step(params, cache, tokens, policy,
+                                     write_mask)
+
+    def _decode_step(self, params, cache, tokens, policy, write_mask):
+        if sh.active() is not None and not all(
+                sh.is_dtensor(t) for t in cache.data.values()):
+            raise RuntimeError("decode_step writes a plain cache in place "
+                               "and does not run it under a mesh; lay the "
+                               "cache out on the mesh (launch.specs' "
+                               "shardings)")
         cfg = self.cfg
-        x = shard(embed_apply(params["embed"], tokens), "batch", None, None)
+        x = shard(_embed(params["embed"], tokens), "batch", None, None)
         B = x.shape[0]
         clen = cache.length
         lens = clen.expand(B) if clen.dim() == 0 else clen
@@ -778,7 +1092,9 @@ class LM:
                                           policy=policy,
                                           write_mask=write_mask)
                     app += 1
-        x = rmsnorm(params["final_norm"], x)
+        # under a mesh, the unembed's input laid out by the batch (DTensor
+        # otherwise gathers the batch and splits the contraction)
+        x = shard(rmsnorm(params["final_norm"], x), "batch", None, None)
         logits = shard(unembed_apply(params["embed"], x, policy), "batch",
                        None, "tensor")
         return logits, DecodeCache(cache.data, clen + 1)
@@ -884,7 +1200,7 @@ class LM:
         lands on a multiple of ``cfg.ssm_scan_chunk``."""
         _refuse_mesh("prefill_chunk")
         cfg, dev = self.cfg, self.device
-        x = shard(embed_apply(params["embed"], tokens), "batch", None, None)
+        x = shard(_embed(params["embed"], tokens), "batch", None, None)
         M, Cb = tokens.shape
         offsets = torch.as_tensor(offsets, dtype=torch.int64, device=dev)
         chunk_lens = torch.as_tensor(chunk_lens, dtype=torch.int64,

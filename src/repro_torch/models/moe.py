@@ -161,7 +161,11 @@ def moe_apply(p, x, *, top_k: int, capacity_factor: float = 1.25,
     xf = x.reshape(T, d)
     r = route(p["router"], xf, top_k=top_k, capacity_factor=capacity_factor)
     # load-balancing aux loss (Switch-style), from each token's first pick
-    frac_tokens = F.one_hot(r.top_i[:, 0], E).to(torch.float32).mean(dim=0)
+    # one-hot by a comparison, the same ops on every device (F.one_hot
+    # checks its indices on some devices only, so that the ops counted on
+    # meta stand-ins would not be the ones the card runs)
+    top1 = r.top_i[:, 0, None] == torch.arange(E, device=r.top_i.device)
+    frac_tokens = top1.to(torch.float32).mean(dim=0)
     aux_loss = E * torch.sum(frac_tokens * r.probs.mean(dim=0))
     gathered = xf[r.tok] * r.keep[:, None].to(x.dtype)
     xbuf = torch.zeros((E * r.cap, d), dtype=x.dtype, device=x.device)

@@ -146,7 +146,11 @@ def _local_dispatch(xf, router, top_k, capacity_factor):
     gathered = xf[r.tok] * r.keep[:, None].to(xf.dtype)
     xbuf = torch.zeros((E * r.cap, d), dtype=xf.dtype, device=xf.device)
     xbuf = xbuf.index_put((r.slot,), gathered, accumulate=True)
-    frac_tokens = F.one_hot(r.top_i[:, 0], E).to(torch.float32).mean(dim=0)
+    # one-hot by a comparison, the same ops on every device (F.one_hot
+    # checks its indices on some devices only, so that the ops counted on
+    # meta stand-ins would not be the ones the card runs)
+    top1 = r.top_i[:, 0, None] == torch.arange(E, device=r.top_i.device)
+    frac_tokens = top1.to(torch.float32).mean(dim=0)
     aux = E * torch.sum(frac_tokens * r.probs.mean(dim=0))
     dropped = torch.sum(1.0 - r.keep.to(torch.float32)) * (1.0 / (T * top_k))
     return xbuf.reshape(E, r.cap, d), r, aux, dropped
@@ -235,11 +239,16 @@ def moe_apply_distributed(p, x, *, top_k: int, capacity_factor: float,
     if "shared" in p:
         sp = p["shared"]
         # the shared experts run on the global tensors (x may be plain)
+        # (under a mesh, their input gathered over the model axis and the
+        # down projection's gradient gathered over it on the way back, the
+        # Megatron layout GSPMD picks: DTensor's own choices replicate the
+        # shared experts over 'model')
         with sh.mesh_region(ctx):
-            xf = x.reshape(-1, d)
+            xf = sh.shard(x, "batch", None, None).reshape(-1, d)
             g = xf @ sp["w_gate"]
             u = xf @ sp["w_up"]
             h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-            out = out + (h @ sp["w_down"]).reshape(B, S, d)
+            y = sh.grad_to(h @ sp["w_down"], "batch", None)
+            out = out + y.reshape(B, S, d)
 
     return out, {"aux_loss": aux, "dropped_frac": dropped}

@@ -17,6 +17,10 @@ Its result at a position depends only on the positions before it, so
 padding a chunk's tail leaves the valid positions' bits unchanged: a
 chunked prefill whose boundaries land on multiples of the scan chunk
 reproduces the monolithic one.
+
+Each chunk step runs inside a ``record_function("selective_scan_kernel")``
+scope, the JAX package's named scope, which ``roofline.fused_model``
+reads; a backward that autograd runs is outside it.
 """
 from __future__ import annotations
 
@@ -24,8 +28,13 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init
+
+
+#: the JAX package's named scope around each chunk step of the scan
+SCOPE = "selective_scan_kernel"
 
 
 def _combine(left, right):
@@ -66,8 +75,10 @@ def chunked_linear_scan(a, b, h0, chunk: int = 64):
         b = _pad_time(b, pad)
     h, outs = h0, []
     for s0 in range(0, S + pad, chunk):
-        pa, pb = _inclusive_scan(a[:, s0:s0 + chunk], b[:, s0:s0 + chunk])
-        h_seq = pb + pa * h[:, None]
+        with record_function(SCOPE):
+            pa, pb = _inclusive_scan(a[:, s0:s0 + chunk],
+                                     b[:, s0:s0 + chunk])
+            h_seq = pb + pa * h[:, None]
         h = h_seq[:, -1]
         outs.append(h_seq)
     return torch.cat(outs, dim=1)[:, :S], h
@@ -124,11 +135,14 @@ def mamba1_init(gen: torch.Generator, d_model: int, *, d_state: int,
     }
 
 
-def _mamba1_core(p, xc, d_state: int):
+def _mamba1_core(p, xc, d_state: int, shards=None):
     """xc: (B, S, d_in) post-conv.  Returns the per-step (a, bx, C): a and
-    bx (B, S, d_in, N), C (B, S, N), all f32."""
+    bx (B, S, d_in, N), C (B, S, N), all f32.  With ``shards`` the channels
+    are one shard's, and x_proj's partial product is summed over them."""
     dt_rank = p["dt_proj"].shape[0]
     proj = xc @ p["x_proj"]
+    if shards is not None:
+        proj = shards.psum(proj)
     dt_low, Bm, Cm = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
     dt = F.softplus((dt_low @ p["dt_proj"]).to(torch.float32)
                     + p["dt_bias"])  # (B, S, d_in)
@@ -155,24 +169,31 @@ def _chunked_ssm(inputs, h0, expand_fn, chunk: int):
     h, ys = h0, []
     for s0 in range(0, S + pad, chunk):
         part = tuple(t[:, s0:s0 + chunk] for t in leaves)
-        a_k, bx_k, readout = expand_fn(part if isinstance(inputs, tuple)
-                                       else part[0])
-        # padded positions are identity transitions (a = 1, b = 0)
-        m = mask[:, s0:s0 + chunk]
-        me = m.reshape(m.shape + (1,) * (a_k.dim() - 2))
-        a_k = a_k * me + (1.0 - me)
-        bx_k = bx_k * m.reshape(m.shape + (1,) * (bx_k.dim() - 2))
-        pa, pb = _inclusive_scan(a_k, bx_k)
-        h_seq = pb + pa * h[:, None]
-        ys.append(readout(h_seq))
+        with record_function(SCOPE):
+            a_k, bx_k, readout = expand_fn(part if isinstance(inputs, tuple)
+                                           else part[0])
+            # padded positions are identity transitions (a = 1, b = 0)
+            m = mask[:, s0:s0 + chunk]
+            me = m.reshape(m.shape + (1,) * (a_k.dim() - 2))
+            a_k = a_k * me + (1.0 - me)
+            bx_k = bx_k * m.reshape(m.shape + (1,) * (bx_k.dim() - 2))
+            pa, pb = _inclusive_scan(a_k, bx_k)
+            h_seq = pb + pa * h[:, None]
+            ys.append(readout(h_seq))
         h = h_seq[:, -1]
     return torch.cat(ys, dim=1)[:, :S], h
 
 
 def mamba1_apply(p, x, *, d_state: int, chunk: int = 64,
-                 state: Tuple | None = None, return_state: bool = False):
+                 state: Tuple | None = None, return_state: bool = False,
+                 shards=None):
     """x: (B, S, d).  state: (conv_carry, h) for stepwise decode; with
-    ``return_state`` returns (out, (conv_carry, h_last))."""
+    ``return_state`` returns (out, (conv_carry, h_last)).
+
+    shards: ``p`` and ``state`` hold one shard of the inner channels (a
+    model-parallel rank's); ``shards.psum`` sums x_proj's partial product
+    over the shards, and ``out`` is this shard's partial sum of out_proj's
+    (the caller sums it)."""
     B, S, _ = x.shape
     d_in = p["out_proj"].shape[0]
     xz = x @ p["in_proj"]
@@ -183,12 +204,12 @@ def mamba1_apply(p, x, *, d_state: int, chunk: int = 64,
     h0 = (torch.zeros((B, d_in, d_state), dtype=torch.float32,
                       device=x.device) if state is None else state[1])
     if S == 1:  # decode fast path: one state update
-        a, bx, Cm = _mamba1_core(p, xc, d_state)
+        a, bx, Cm = _mamba1_core(p, xc, d_state, shards)
         h_last = a[:, 0] * h0 + bx[:, 0]
         y = torch.einsum("bdn,bn->bd", h_last, Cm[:, 0])[:, None]
     else:
         def expand(xc_k):
-            a, bx, Cm = _mamba1_core(p, xc_k, d_state)
+            a, bx, Cm = _mamba1_core(p, xc_k, d_state, shards)
             return a, bx, (lambda h_seq:
                            torch.einsum("bsdn,bsn->bsd", h_seq, Cm))
 
@@ -230,17 +251,30 @@ def mamba2_init(gen: torch.Generator, d_model: int, *, d_state: int,
 
 
 def mamba2_apply(p, x, *, d_state: int, head_dim: int, chunk: int = 64,
-                 state: Tuple | None = None, return_state: bool = False):
-    """x: (B, S, d); heads of ``head_dim`` with one scalar decay each."""
+                 state: Tuple | None = None, return_state: bool = False,
+                 shards=None):
+    """x: (B, S, d); heads of ``head_dim`` with one scalar decay each.
+
+    shards: ``p`` and ``state`` hold one of ``shards.n`` shards of the
+    heads (a model-parallel rank's) and one of the B and C channels, whose
+    columns follow the heads' in ``in_proj`` and ``conv_w``;
+    ``shards.gather`` joins the B and C shards after the conv,
+    ``shards.psum`` sums the gated norm's sum of squares over the shards,
+    and ``out`` is this shard's partial sum of out_proj's contraction (the
+    caller sums it)."""
     B, S, _ = x.shape
     d_in = p["out_proj"].shape[0]
     H = d_in // head_dim
+    bc = p["conv_w"].shape[-1] - d_in  # B and C channels held here
     proj = x @ p["in_proj"]
-    z, xbc, dt_raw = torch.split(proj, [d_in, d_in + 2 * d_state, H], dim=-1)
+    z, xbc, dt_raw = torch.split(proj, [d_in, d_in + bc, H], dim=-1)
     conv_carry = None if state is None else state[0]
     xc_all, new_conv = causal_conv1d(xbc, p["conv_w"], p["conv_b"],
                                      conv_carry)
     xc_all = _silu_in(xc_all)
+    if shards is not None:
+        xc_all = torch.cat([xc_all[..., :d_in],
+                            shards.gather(xc_all[..., d_in:])], dim=-1)
     dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # (B, S, H)
     A = -torch.exp(p["A_log"])  # (H,)
 
@@ -270,11 +304,23 @@ def mamba2_apply(p, x, *, d_state: int, head_dim: int, chunk: int = 64,
         xh = xc_all[..., :d_in].reshape(B, S, H, head_dim)
     y = y + p["D"][:, None] * xh.to(torch.float32)
     y = y.reshape(B, S, d_in).to(x.dtype)
-    y = rmsnorm(p["norm"], y * _silu_in(z))
+    y = y * _silu_in(z)
+    y = rmsnorm(p["norm"], y) if shards is None \
+        else _sharded_rmsnorm(p["norm"], y, shards.psum, d_in * shards.n)
     out = y @ p["out_proj"]
     if return_state:
         return out, (new_conv, h_last)
     return out
+
+
+def _sharded_rmsnorm(params, x, psum, width: int, eps: float = 1e-6):
+    """``layers.rmsnorm`` over a last dim of ``width`` of which ``x`` holds
+    one shard: the mean square summed over the shards by ``psum``."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = psum(torch.sum(xf * xf, dim=-1, keepdim=True)) / width
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(dt)
 
 
 def mamba_state_shapes(cfg, batch: int):

@@ -31,6 +31,8 @@ import math
 import sys
 from typing import Dict, Optional, Tuple
 
+import torch
+
 from repro_torch.train import tree as tree_util
 
 
@@ -252,6 +254,31 @@ def shard(x, *logical):
         raise ValueError("shard() under a MeshContext without a DeviceMesh")
     spec = _resolve(ctx, logical, tuple(x.shape))
     return redistribute(x, ctx.mesh, placements(spec, ctx.mesh))
+
+
+class _GradTo(torch.autograd.Function):
+    """The identity, whose gradient is redistributed to ``pl`` on ``mesh``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.mesh, ctx.pl = mesh, pl
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return redistribute(g, ctx.mesh, ctx.pl), None, None
+
+
+def grad_to(x, *logical):
+    """``x`` itself, whose gradient is redistributed to the layout of
+    ``logical`` on its way back when a mesh context is active (where
+    DTensor's rule for the op that made ``x`` would otherwise pick a
+    costlier backward); ``x`` itself without a mesh."""
+    ctx = active()
+    if ctx is None:
+        return x
+    spec = _resolve(ctx, logical, tuple(x.shape))
+    return _GradTo.apply(x, ctx.mesh, placements(spec, ctx.mesh))
 
 
 _IN_REGION: list = []

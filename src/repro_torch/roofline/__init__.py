@@ -1,4 +1,4 @@
-"""``repro_torch.roofline`` — the roofline report type and the measured
-utilizations of dry-run artifacts (counterpart of
-``repro.roofline.analysis``; the HLO parsing has no PyTorch counterpart and
-stays unported)."""
+"""``repro_torch.roofline`` — the roofline report, the measured
+utilizations of dry-run artifacts, the op-level cost counter that stands in
+for the JAX package's HLO parser (``op_cost``) and the fused-kernel traffic
+model (``fused_model``)."""

@@ -6,9 +6,12 @@
 
 Counterpart of ``repro.roofline.analysis``: the ``RooflineReport`` dataclass
 and its properties, the measured utilizations read from dry-run JSON
-artifacts, and the model-FLOP estimate the chip tuner weights phases by.  The report's default rates are those of one NVIDIA H100 SXM
-from NVIDIA's data sheet (dense bf16 tensor-core peak, HBM3 rate, NVLink
-rate each way), not the JAX package's TPU constants.
+artifacts, the model-FLOP estimate the chip tuner weights phases by, and
+``analyze``, which builds a report from a step's per-device ``OpCost``
+(``roofline.op_cost``) where the JAX function parses the compiled HLO.
+The report's default rates are those of one NVIDIA H100 SXM from NVIDIA's
+data sheet (dense bf16 tensor-core peak, HBM3 rate, NVLink rate each way),
+not the JAX package's TPU constants.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Dict, Optional
 H100_PEAK_FLOPS_BF16 = 989e12
 H100_HBM_BW = 3.35e12
 H100_NVLINK_BW = 450e9
+#: NVIDIA H100 SXM data sheet: HBM3 bytes on one card
+H100_HBM_BYTES = 80e9
 
 
 @dataclasses.dataclass
@@ -101,8 +106,8 @@ def measured_utilizations(results_dir: str = "results"
                           ) -> Dict[tuple, float]:
     """(arch, shape) -> measured roofline fraction from dry-run artifacts.
 
-    Scans ``results_dir/dryrun_*.json`` (written by the JAX package's
-    ``launch.dryrun``) and returns, per (arch, shape) cell, the best
+    Scans ``results_dir/dryrun_*.json`` (written by ``launch.dryrun``, the
+    port's or the JAX package's: the rows share their keys) and returns, per (arch, shape) cell, the best
     ``roofline_fraction`` achieved across meshes — the fraction of the
     compute roofline the cell actually sustains, i.e. the FPU activity the
     chip autotuner should tune for instead of hand-set constants.
@@ -167,3 +172,23 @@ def model_flops_estimate(cfg, shape) -> float:
         return 2.0 * n * tokens
     # decode: one token per sequence
     return 2.0 * n * shape.global_batch
+
+
+def collective_bytes_per_device(cost) -> Dict[str, int]:
+    """Result bytes of the step's collectives, per XLA collective kind, from
+    its ``OpCost``."""
+    return {k: int(v) for k, v in cost.collective_bytes.items()}
+
+
+def analyze(arch: str, shape_name: str, mesh_name: str, chips: int,
+            cost, cfg, shape) -> RooflineReport:
+    """Roofline terms of one cell from its step's per-device ``OpCost``
+    (``roofline.op_cost.count``), where the JAX function parses the
+    compiled HLO: the port's step runs eagerly, so every layer and loop
+    trip is counted as it runs and no trip count is recovered."""
+    return RooflineReport(
+        arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
+        flops_per_device=cost.flops, bytes_per_device=cost.traffic_bytes,
+        collective_bytes_per_device=cost.total_collective_bytes,
+        collective_breakdown=collective_bytes_per_device(cost),
+        model_flops=model_flops_estimate(cfg, shape))

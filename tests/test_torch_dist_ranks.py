@@ -283,3 +283,273 @@ def cells_run(rank):
         k=(_np(want_cache.data["k"]), _np(cache.data["k"])),
         length=(int(want_cache.length), int(sh.full(cache.length))))
     return out if rank == 0 else None
+
+
+# ------------------------------------------------------ decode on a mesh --
+#: (arch, config overrides, batch): the dense family with its kv heads
+#: sharded over 'model' and with its head dim sharded (one kv head), the
+#: ring cache, ssm, hybrid, and a B = 1 cache sharded along the sequence
+DECODE_CASES = {
+    "dense": ("tinyllama-1.1b", {"n_kv_heads": 2}, 4),
+    "dense_head_dim": ("tinyllama-1.1b", {}, 4),
+    "ring": ("mixtral-8x7b", {}, 4),
+    "ssm": ("falcon-mamba-7b", {}, 4),
+    "hybrid": ("zamba2-1.2b", {"n_layers": 5}, 4),
+    "sequence": ("tinyllama-1.1b", {"n_kv_heads": 2}, 1),
+}
+DECODE_STEPS, PROMPT, MAX_LEN = 8, 12, 32
+
+
+def mesh_decode(rank):
+    """For each of ``DECODE_CASES``: a prefill, then ``DECODE_STEPS``
+    decode steps unsharded and with the params and the cache laid out on
+    (data=4, model=2) as ``launch.specs`` lays them out; each step's
+    logits and the final caches of both."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.specs import _cache_specs
+    from repro_torch.models.model import DecodeCache
+    ctx = sh.make_context(make_host_mesh(data=4, model=2))
+    out = {}
+    for name, (arch, over, B) in DECODE_CASES.items():
+        cfg = dataclasses.replace(f32_reduced(arch), **over)
+        model = LM(cfg, device="cpu")
+        params = model.init(0)
+        rng = np.random.default_rng(1)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (B, PROMPT)))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (DECODE_STEPS, B, 1)))
+        _, cache = model.prefill(params, prompt, max_len=MAX_LEN)
+        start = tree.map(torch.clone, cache)
+        want = []
+        for t in toks:
+            logits, cache = model.decode_step(params, cache, t)
+            want.append(logits.numpy().copy())
+        with sh.use_mesh(ctx):
+            dp = sh.distribute_tree(
+                params, sh.param_specs(params, cfg.n_experts, ctx), ctx)
+            specs = _cache_specs(model, start, B, ctx)
+            dc = tree.map(lambda t, s: distribute_tensor(
+                t, s.mesh, s.placements, src_data_rank=None), start, specs)
+            got = []
+            for t in toks:
+                logits, dc = model.decode_step(dp, dc, t)
+                got.append(_np(logits))
+            placements = {k: [str(p) for p in v.placements]
+                          for k, v in dc.data.items()}
+        assert isinstance(dc, DecodeCache)
+        out[name] = dict(
+            logits=(np.stack(want), np.stack(got)),
+            cache={k: (v.float().numpy().copy(), _np(dc.data[k]))
+                   for k, v in cache.data.items()},
+            length=(int(cache.length), int(sh.full(dc.length))),
+            placements=placements)
+    return out if rank == 0 else None
+
+
+# ------------------------------------------------------- uneven heads --
+#: reduced tinyllama with 2 kv heads, which a 'model' axis of 4 does not
+#: divide
+UNEVEN = dict(n_kv_heads=2)
+
+
+def uneven_heads(rank, state_file):
+    """Reduced float32 tinyllama with ``UNEVEN`` kv heads from the pickled
+    JAX initial state, on (data=2, model=4): ``LM.apply``'s logits and one
+    train step, unsharded and sharded."""
+    from repro_torch.models.convert import train_state_from_jax
+    st_np = _wait_for_pickle(state_file)
+    ctx = sh.make_context(make_host_mesh(data=2, model=4))
+    cfg = dataclasses.replace(f32_reduced("tinyllama-1.1b"), **UNEVEN)
+    model = LM(cfg, device="cpu")
+    opt = AdamWConfig(**OPT)
+    batch = _batch(cfg)
+    state = train_state_from_jax(st_np, cfg, device="cpu")
+    plain_logits = model.apply(state.params, batch["tokens"])[0]
+    ref, rm = make_train_step(model, opt)(state, batch)
+    with sh.use_mesh(ctx):
+        sstate, grad_sh = _sharded_state(state, cfg, ctx)
+        logits = model.apply(sstate.params, batch["tokens"])[0]
+        new, m = make_train_step(model, opt,
+                                 grad_shardings=grad_sh)(sstate, batch)
+    out = dict(
+        logits=(plain_logits.numpy().copy(), _np(logits)),
+        port=dict(metrics={k: float(v) for k, v in rm.items()},
+                  params=[_np(p) for p in tree.leaves(ref.params)]),
+        sharded=dict(metrics={k: float(v) for k, v in m.items()},
+                     params=[_np(p) for p in tree.leaves(new.params)]))
+    return out if rank == 0 else None
+
+
+# ------------------------------------------------------------ fake worlds --
+# Bodies run in a spawned process of their own, made rank 0 of a fake world
+# (``launch.mesh.fake_world``): they count, and no collective moves data.
+def fake_scan_loop(device):
+    """The 7-step loop of the JAX package's
+    ``test_scan_flops_and_collectives_exact`` on a fake (data=2, model=2)
+    mesh: ``c = c @ w`` with w (2048, 2048) sharded ``P(None, 'model')``,
+    c starting as x (256, 2048) ``P('data', None)`` and constrained to
+    ``P('data', 'model')`` after each product, counted on ``device``
+    stand-ins (a "cpu" mesh, so that cpu tensors may be placed)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.roofline.op_cost import count
+    fake_world(4)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    w = DTensor.from_local(torch.zeros((2048, 1024), device=device), mesh,
+                           [Replicate(), Shard(1)], run_check=False)
+    x = DTensor.from_local(torch.zeros((128, 2048), device=device), mesh,
+                           [Shard(0), Replicate()], run_check=False)
+
+    def f(w, x):
+        c = x
+        for _ in range(7):
+            c = (c @ w).redistribute(mesh, [Shard(0), Shard(1)])
+        return c.sum()
+
+    # and one elementwise op on the sharded w, counted at its local shape
+    return (dataclasses.asdict(count(f, w, x)[1]),
+            dataclasses.asdict(count(torch.mul, w, 2.0)[1]))
+
+
+def fake_collectives():
+    """Each collective the port issues, once, on 8 x 4 float32 (128 bytes)
+    in a fake world of 4: the functional ones DTensor calls (each waited)
+    and the ``torch.distributed`` ones (c10d) the MoE and the pipeline
+    call."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.roofline.op_cost import count
+    fake_world(4)
+    x = torch.ones(8, 4)
+    world = dist.group.WORLD
+
+    def functional():
+        for t in (funcol.all_reduce(x, "sum", world),
+                  funcol.all_gather_tensor(x, 0, world),
+                  funcol.reduce_scatter_tensor(x, "sum", 0, world),
+                  funcol.all_to_all_single(x, None, None, world)):
+            funcol.wait_tensor(t)
+
+    def c10d():
+        dist.all_reduce(x.clone())
+        dist.all_gather_into_tensor(torch.empty(32, 4), x)
+        dist.reduce_scatter_tensor(torch.empty(2, 4), x)
+        dist.all_to_all_single(torch.empty(8, 4), x)
+        recv = torch.empty(8, 4)
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1),
+                                           dist.P2POp(dist.irecv, recv, 3)]):
+            req.wait()
+
+    def waits():
+        t = funcol.all_reduce(x, "sum", world)
+        for _ in range(3):
+            t = funcol.wait_tensor(t)
+
+    return {name: dataclasses.asdict(count(fn)[1]) for name, fn in
+            (("functional", functional), ("c10d", c10d), ("waits", waits))}
+
+
+def fake_cell_counts(cells, data, model, device="meta", mesh_type="cuda"):
+    """``launch.dryrun.count_cell`` of each (arch, kind, overrides, seq,
+    batch) cell of reduced configs on a fake (data, model) mesh of
+    ``mesh_type``: {key: OpCost as a dict}.  With ``device="cpu"`` the
+    cell's arguments are placed from zero-filled cpu tensors instead of
+    meta stand-ins."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    fake_world(data * model)
+    mesh = init_device_mesh(mesh_type, (data, model),
+                            mesh_dim_names=("data", "model"))
+    out = {}
+    for key, (arch, kind, over, seq, batch) in cells.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        _, cost, _, _, _ = dryrun.count_cell(
+            arch, kind, mesh, cfg=cfg, shape=ShapeSpec(kind, seq, batch, kind),
+            device=device)
+        out[key] = dataclasses.asdict(cost)
+    return out
+
+
+def fake_depth_extrapolation(cells, data, model):
+    """For each cell of reduced configs on a fake (data, model) mesh: the
+    count at full depth, and the one ``launch.dryrun`` extrapolates from
+    two reduced depths (``dryrun.depths(cfg, dryrun.DEPTH)``), as dicts,
+    with those depths."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    fake_world(data * model)
+    mesh = init_device_mesh("cuda", (data, model),
+                            mesh_dim_names=("data", "model"))
+    out = {}
+    for key, (arch, kind, over, seq, batch) in cells.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        shape = ShapeSpec(kind, seq, batch, kind)
+
+        def at(n):
+            return dryrun.count_cell(
+                arch, kind, mesh, cfg=dataclasses.replace(cfg, n_layers=n),
+                shape=shape)[1]
+
+        ds = dryrun.depths(cfg, dryrun.DEPTH)
+        ext = dryrun._extrapolate([(d, at(d)) for d in ds], cfg.n_layers)
+        full = at(cfg.n_layers)
+        out[key] = dict(depths=list(ds), full=dataclasses.asdict(full),
+                        extrapolated=dataclasses.asdict(ext))
+    return out
+
+
+def fake_dryrun_rows(cells, tech, data=2, model=4):
+    """``launch.dryrun.run_cell``'s row of each (arch, kind, overrides, seq,
+    batch) cell of reduced configs on a fake (data, model) mesh, the chip
+    policy on the cpu from ``tech`` (``TechParams.values``); and one
+    ``launch.hillclimb.measure`` row, of the first cell at 2
+    microbatches."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.energy_model import TechParams
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.mesh import fake_world
+    fake_world(data * model)
+    tech = TechParams(tuple(tech))
+    mesh = make_host_mesh(data=data, model=model)
+    rows, first = {}, None
+    for key, (arch, kind, over, seq, batch) in cells.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        shape = ShapeSpec(kind, seq, batch, kind)
+        rows[key] = dryrun.run_cell(arch, kind, mesh=mesh, cfg=cfg,
+                                    shape=shape, microbatches=1, depth=0,
+                                    device="cpu", tech=tech, verbose=False)
+        first = first or (arch, kind, cfg, shape)
+    arch, kind, cfg, shape = first
+    climb = hillclimb.measure(arch, kind, microbatches=2, label="mb2",
+                              hypothesis="two microbatches", depth=0,
+                              device="cpu", tech=tech, mesh=mesh, cfg=cfg,
+                              shape_spec=shape)
+    return rows, climb
+
+
+def fake_production_rows(n_ranks, cells, tech):
+    """``launch.dryrun.run_cell``'s row of each (arch, shape, n_layers)
+    production cell at full width, counted at ``n_layers`` (0: the
+    config's), on the production mesh of a fake world of ``n_ranks``, the
+    chip policy on the cpu from ``tech`` (``TechParams.values``)."""
+    from repro_torch.core.energy_model import TechParams
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    fake_world(n_ranks)
+    tech = TechParams(tuple(tech))
+    out = {}
+    for arch, shape, layers in cells:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        out[f"{arch}|{shape}"] = dryrun.run_cell(
+            arch, shape, multi_pod=n_ranks == 512, cfg=cfg, depth=0,
+            device="cpu", tech=tech, verbose=False)
+    return out

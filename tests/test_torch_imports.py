@@ -73,7 +73,12 @@ def test_slice_modules_are_scanned():
                 "train/optimizer.py", "train/train_loop.py",
                 "train/checkpoint.py", "train/fault_tolerance.py",
                 "train/tree.py", "data/__init__.py", "data/pipeline.py",
-                "launch/train.py", "models/flash_vjp.py"):
+                "launch/train.py", "models/flash_vjp.py",
+                "parallel/__init__.py", "parallel/sharding.py",
+                "parallel/pipeline.py", "models/moe_sharded.py",
+                "launch/mesh.py", "launch/specs.py",
+                "roofline/op_cost.py", "roofline/fused_model.py",
+                "launch/dryrun.py", "launch/hillclimb.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -179,6 +184,21 @@ def test_cluster_and_launchers_raise_without_cuda(monkeypatch):
     rc = tune_cluster([cls], params=params, max_chips=1, device="cpu",
                       vdd_grid=np.array([0.8]), vbb_grid=np.array([0.0]))
     assert rc.counts == {"bulk": 1}
+
+
+def test_dryrun_and_hillclimb_raise_without_cuda(monkeypatch):
+    """The dry run and the hillclimb run their chip policies on the card
+    unless asked for the CPU: without CUDA they raise before starting a
+    fake world."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun, hillclimb
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: dryrun.main([]),
+                 lambda: dryrun.main(["--mesh", "single"]),
+                 lambda: hillclimb.main([])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not dist.is_initialized()
 
 
 def test_train_entry_points_raise_without_cuda(monkeypatch):

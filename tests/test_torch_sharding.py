@@ -17,8 +17,8 @@
     plain version on each rank's replicated operands), and the K1 wrapper
     refuses a DTensor;
   * ``shard()`` returns its argument itself with no mesh;
-  * ``decode_step`` and ``prefill_chunk``, which write the plain cache in
-    place, raise under a mesh.
+  * ``prefill_chunk``, and ``decode_step`` on a plain cache, which write
+    it in place, raise under a mesh.
 """
 import concurrent.futures
 import pickle
@@ -83,8 +83,10 @@ def test_shard_is_a_noop_without_a_mesh():
 
 @pytest.mark.parametrize("entry", ["decode_step", "prefill_chunk"])
 def test_cache_writers_refuse_a_mesh(entry):
-    """Decode and chunked prefill write the plain cache in place: under a
-    mesh they raise before touching it, and the cache stays as it was."""
+    """Chunked prefill writes the cache in place, and so does decode on a
+    plain cache (under a mesh it writes each rank's shard of a cache laid
+    out on the mesh, tests/test_torch_mesh_repairs.py): under a mesh they
+    raise before touching a plain cache, and it stays as it was."""
     cfg = get_config("tinyllama-1.1b").reduced()
     model = LM(cfg, device="cpu")
     params = model.init(0)

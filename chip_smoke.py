@@ -177,15 +177,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      from the mesh and restored with ``shardings=``, every leaf bitwise
      with its placements; (f) the bf16 ``fused`` policy matmul of
      DTensor operands, K1 launched once on the replicated operands,
-     bitwise the unsharded K1 (the only launch of K1-K6 in the phase),
-     and ``fused_qmm`` refusing a DTensor; the process group is then
+     bitwise the unsharded K1, and ``fused_qmm`` refusing a DTensor; the process group is then
      destroyed; (g) ``python -m repro_torch.launch.train --devices 1
      --steps 10`` on the card (its own world of one rank, run beside
      (b)-(f); (a) and (c)'s times are taken after it ends), exit 0 and
      its loss below a uniform prediction's; (h) 8 ``decode_step``s of
      full-width tinyllama-1.1b after a 2 x 64 prefill, with the params and
      the cache laid out on the mesh (DTensors), every step's logits and
-     the final cache bitwise the plain decode's;
+     the final cache bitwise the plain decode's; then chunked prefill on
+     the mesh against the plain one, bitwise: ``prefill_chunked`` of the
+     2 x 64 prompt in chunks of 16 (the last logits, every cache leaf
+     and the lengths), a ``prefill_chunk`` of 16 tokens over three lanes
+     of that 2-lane cache, slot id 2 a pad lane (the real lanes' logits,
+     the cache, the lengths, and the first chunk's KV, which the pad lane
+     would overwrite, kept), and one chunk into a fresh cache under
+     EmulatedPolicy(bf16, fused), whose 155 K1 launches on the
+     replicated operands are with (f)'s one the phase's only launches of
+     K1-K6 (the plain chunk's run before the window);
   3i. (run after 3h) the dry run on the port's own terms, counters set to
      0 just before and every count 0 just after: (a) in a child process
      ``python -m chip_smoke --dryrun`` (started with phase 3h and given
@@ -3180,10 +3188,10 @@ def dist_launcher_result(child):
     return dict(lines=lines[-2:], wall_s=wall, uniform_loss=math.log(256))
 
 
-def distributed_path(model, params, dev, smi, k1):
+def distributed_path(model, params, dev, smi, k1, fused_ref):
     """Phase 3h: (g) starts as a child process; then on a world of one
-    NCCL rank with a (data=1, model=1) mesh (b), (e), (c) in float32, (d)
-    and (f) run while it does; (g) is read, and (a) and (c)'s bf16 times
+    NCCL rank with a (data=1, model=1) mesh (b), (e), (c) in float32, (d),
+    (f) and (h) run while it does; (g) is read, and (a) and (c)'s bf16 times
     are taken with the card to this process alone; the group is
     destroyed."""
     from repro_torch.launch.mesh import make_host_mesh
@@ -3215,6 +3223,8 @@ def distributed_path(model, params, dev, smi, k1):
             run("policy_matmul_k1", lambda: dist_k1(*k1, ctx))
             run("decode_on_mesh", lambda: dist_decode(model, params, dev,
                                                       ctx))
+            run("chunks_on_mesh", lambda: dist_chunks(model, params, dev,
+                                                      ctx, fused_ref))
             t0 = time.perf_counter()
             out["launcher"] = dist_launcher_result(child)
             out["launcher_waited_s"] = time.perf_counter() - t0
@@ -3233,29 +3243,76 @@ def distributed_path(model, params, dev, smi, k1):
           **out})
 
 
-# (h): 8 decode steps on the (1, 1) mesh after a 2 x 64 prefill
+# (h): 8 decode steps on the (1, 1) mesh after a 2 x 64 prefill; then the
+# prompt in chunks of 16, a chunk over lanes PAD_SLOTS of that 2-lane cache
+# (slot id 2 a pad lane) and a fused chunk, each on the mesh and plain
 DIST_DECODE = dict(batch=2, prompt=64, steps=8, max_len=128)
+DIST_CHUNK = 16
+PAD_SLOTS = (0, 2, 1)
 # 3i (a): the dry run's cells of tinyllama-1.1b on pod16x16 in the child
 DRYRUN_SHAPES = ("decode_32k", "train_4k")
 # 3i (b): record_function scopes timed on the host
 SCOPE_REPS = 20000
 
 
-def dist_decode(model, params, dev, ctx):
-    """(h) DIST_DECODE's decode steps of the full-width model unsharded and
-    with the params and the cache distributed on the (1, 1) mesh: every
-    step's logits and the final cache bitwise equal."""
-    from repro_torch.launch.specs import _cache_specs
-    from repro_torch.parallel import sharding as sh
-    from repro_torch.train import tree
+def dist_tokens(model, dev):
+    """(h)'s prompt (batch x prompt), its decode tokens (steps x batch x
+    1), and the pad-lane chunk's tokens (3 x DIST_CHUNK)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 6)
     B = DIST_DECODE["batch"]
     vocab = model.cfg.vocab_size
-    prompt = torch.randint(0, vocab, (B, DIST_DECODE["prompt"]),
-                           generator=gen, device=dev)
-    toks = torch.randint(0, vocab, (DIST_DECODE["steps"], B, 1),
-                         generator=gen, device=dev)
+    return tuple(torch.randint(0, vocab, shape, generator=gen, device=dev)
+                 for shape in ((B, DIST_DECODE["prompt"]),
+                               (DIST_DECODE["steps"], B, 1),
+                               (len(PAD_SLOTS), DIST_CHUNK)))
+
+
+def on_mesh(model, cache, batch, ctx):
+    """``cache`` of ``batch`` lanes laid out on the mesh as
+    ``launch.specs`` lays it out."""
+    from repro_torch.launch.specs import _cache_specs
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import tree
+    return tree.map(lambda t, s: sh.redistribute(t, s.mesh, s.placements),
+                    cache, _cache_specs(model, cache, batch, ctx))
+
+
+def fresh_lanes(model, dev):
+    """A zeroed cache of (h)'s lanes with per-lane lengths."""
+    from repro_torch.models.model import DecodeCache
+    B = DIST_DECODE["batch"]
+    return DecodeCache(model.init_cache(B, DIST_DECODE["max_len"]).data,
+                       torch.zeros(B, dtype=torch.int64, device=dev))
+
+
+def fused_chunk(model, params, cache, prompt):
+    """The first DIST_CHUNK tokens of ``prompt`` into ``cache`` under
+    EmulatedPolicy(bf16, fused)."""
+    from repro_torch.models.numerics import EmulatedPolicy
+    B = prompt.shape[0]
+    return model.prefill_chunk(
+        params, cache, prompt[:, :DIST_CHUNK], [0] * B, [DIST_CHUNK] * B,
+        list(range(B)), policy=EmulatedPolicy("bf16", "fused"))
+
+
+def dist_fused_reference(model, params, dev):
+    """(h)'s fused chunk on plain tensors, taken outside the launch
+    window: (last logits, cache)."""
+    last, cache = fused_chunk(model, params, fresh_lanes(model, dev),
+                              dist_tokens(model, dev)[0])
+    torch.cuda.synchronize()
+    return last, cache
+
+
+def dist_decode(model, params, dev, ctx):
+    """(h) DIST_DECODE's decode steps of the full-width model unsharded and
+    with the params and the cache distributed on the (1, 1) mesh: every
+    step's logits and the final cache bitwise equal."""
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import tree
+    B = DIST_DECODE["batch"]
+    prompt, toks, _ = dist_tokens(model, dev)
     _, cache = model.prefill(params, prompt, max_len=DIST_DECODE["max_len"])
     start = tree.map(torch.clone, cache)
     want = []
@@ -3265,9 +3322,7 @@ def dist_decode(model, params, dev, ctx):
     with sh.use_mesh(ctx):
         dp = sh.distribute_tree(
             params, sh.param_specs(params, model.cfg.n_experts, ctx), ctx)
-        specs = _cache_specs(model, start, B, ctx)
-        dc = tree.map(lambda t, s: sh.redistribute(t, s.mesh, s.placements),
-                      start, specs)
+        dc = on_mesh(model, start, B, ctx)
         got = []
         for t in toks:
             logits, dc = model.decode_step(dp, dc, t)
@@ -3282,6 +3337,86 @@ def dist_decode(model, params, dev, ctx):
           f"{differ} and caches {cache_differ} differ from the plain decode")
     return dict(**DIST_DECODE, steps_bitwise=len(want), caches_bitwise=sorted(
         caches), length=int(sh.full(dc.length)))
+
+
+def dist_chunks(model, params, dev, ctx, fused_ref):
+    """(h) chunked prefill of the full-width model on the (1, 1) mesh
+    against the plain one, bitwise: ``prefill_chunked`` of the prompt in
+    chunks of DIST_CHUNK (the last logits, every cache leaf, the lengths);
+    then a chunk over PAD_SLOTS of that cache, slot id 2 a pad lane (the
+    real lanes' logits, the cache, the lengths, and the first DIST_CHUNK
+    positions of lane 1, which the pad lane would overwrite, kept); then
+    ``fused_chunk`` into a fresh cache against ``fused_ref``, its K1
+    launches counted."""
+    from repro_torch.kernels.fused import fused_qmm
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import tree
+    prompt, _, pad_tokens = dist_tokens(model, dev)
+    B, S = prompt.shape
+    n, max_len = DIST_CHUNK, DIST_DECODE["max_len"]
+    slots = torch.tensor(PAD_SLOTS, device=dev)
+    real = slots < B
+    pad_args = (pad_tokens, torch.where(real, S, 0), [n] * len(PAD_SLOTS),
+                slots)
+
+    def differ(want, got):
+        """The leaves (and "length") where ``got`` is not ``want``'s bits."""
+        pairs = dict(want.data, length=want.length)
+        return [k for k, v in pairs.items() if not torch.equal(bits(v), bits(
+            sh.full(got.length if k == "length" else got.data[k])))]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    rec = dict(chunk=n, batch=B, prompt=S, pad_slots=list(PAD_SLOTS))
+    (last, plain), rec["chunked_plain_s"] = timed(
+        lambda: model.prefill_chunked(params, prompt, n, max_len=max_len))
+    snap = tree.map(torch.clone, plain)
+    (pad_last, plain), rec["pad_chunk_plain_s"] = timed(
+        lambda: model.prefill_chunk(params, plain, *pad_args))
+    with sh.use_mesh(ctx):
+        dp = sh.distribute_tree(
+            params, sh.param_specs(params, model.cfg.n_experts, ctx), ctx)
+        (got_last, got), rec["chunked_mesh_s"] = timed(
+            lambda: model.prefill_chunked(dp, prompt, n, max_len=max_len))
+        chunked = differ(snap, got)
+        check(torch.equal(bits(last), bits(sh.full(got_last)))
+              and not chunked, f"prefill_chunked on the mesh: the last "
+              f"logits or {chunked} differ from the plain one")
+        (got_pad, got), rec["pad_chunk_mesh_s"] = timed(
+            lambda: model.prefill_chunk(dp, got, *pad_args))
+        padded = differ(plain, got)
+        check(torch.equal(bits(pad_last[real]),
+                          bits(sh.full(got_pad)[real])) and not padded,
+              f"the pad-lane chunk on the mesh: the real lanes' logits or "
+              f"{padded} differ from the plain chunk's")
+        kept = [k for k in ("k", "v") if not torch.equal(
+            bits(snap.data[k][:, :, :n]), bits(plain.data[k][:, :, :n]))]
+        check(not kept and plain.length.tolist() == [S + n] * B,
+              f"the pad lane wrote {kept} or the lengths "
+              f"{plain.length.tolist()}")
+        before = fused_qmm.launches
+        (f_last, f_cache), rec["fused_mesh_s"] = timed(
+            lambda: fused_chunk(model, dp, on_mesh(
+                model, fresh_lanes(model, dev), B, ctx), prompt))
+        launched = fused_qmm.launches - before
+    per_fwd = 7 * model.cfg.n_layers + 1
+    fused = differ(fused_ref[1], f_cache)
+    check(launched == per_fwd, f"the fused chunk on the mesh launched K1 "
+          f"{launched} times, expected {per_fwd}")
+    check(torch.equal(bits(fused_ref[0]), bits(sh.full(f_last)))
+          and not fused, f"the fused chunk on the mesh: the last logits or "
+          f"{fused} differ from the plain chunk's")
+    return dict(rec, chunked_bitwise=sorted(snap.data) + ["last_logits",
+                                                         "length"],
+                pad_chunk_bitwise=True, pad_lane_wrote_nothing=True,
+                length=sh.full(got.length).tolist(),
+                placements={k: [str(p) for p in v.placements]
+                            for k, v in got.data.items()},
+                fused_k1_launches=launched, fused_bitwise=True)
 
 
 def dryrun_child(tech_values):
@@ -5096,16 +5231,20 @@ def main():
                          json.dumps(list(tech.values)))
     try:
         # distribution on a world of one NCCL rank: only (f)'s policy
-        # matmul on the mesh launches a kernel, K1 once; its unsharded K1
-        # reference runs before the window
+        # matmul and (h)'s fused chunk on the mesh launch a kernel: K1
+        # once, then once for each projection and the unembed; their
+        # unsharded references run before the window
         k1_dist = dist_k1_operands(params, dev)
+        fused_ref = dist_fused_reference(model, params, dev)
         dist_counts, _ = drive(
             f"{ARCH} distributed", ("fused_qmm",),
-            lambda: distributed_path(model, params, dev, smi, k1_dist))
-        check(dist_counts["fused_qmm"] == 1
-              and sum(dist_counts.values()) == 1,
+            lambda: distributed_path(model, params, dev, smi, k1_dist,
+                                     fused_ref))
+        k1_mesh = 1 + 7 * cfg.n_layers + 1
+        check(dist_counts["fused_qmm"] == k1_mesh
+              and sum(dist_counts.values()) == k1_mesh,
               f"the distributed path launched {dist_counts}")
-        del k1_dist
+        del k1_dist, fused_ref
         # the dry run launches none of K1-K6
         dry_counts, _ = drive(f"{ARCH} dryrun", (),
                               lambda: dryrun_path(model, dev, smi,

@@ -44,6 +44,7 @@ from repro_torch.models.numerics import matmul
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import (constrain_layer_params, shard,
                                            tensor_size)
+from repro_torch.train import tree as tree_util
 
 _ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -82,14 +83,39 @@ def _layer(tree: Dict, i: int) -> Dict:
             else _whole_layer_axis(v)[i] for k, v in tree.items()}
 
 
-def _refuse_mesh(what: str):
-    """Chunked prefill gathers and writes cache lanes picked by slot ids
-    (``slot_ids``), which no per-rank shard of the cache maps onto; it runs
-    without a mesh only (``decode_step`` writes each rank's shard)."""
-    if sh.active() is not None:
-        raise RuntimeError(f"{what} writes the decode cache in place and "
-                           f"does not run under a mesh; call it outside "
-                           f"sharding.use_mesh")
+def _refuse_plain_cache(cache, what: str):
+    """The cache writers run under a mesh only on a cache whose leaves are
+    DTensors: each rank writes its own shard, and a plain cache has none."""
+    if sh.active() is not None and not all(
+            sh.is_dtensor(t) for t in cache.data.values()):
+        raise RuntimeError(f"{what} writes a plain cache in place and does "
+                           f"not run it under a mesh; lay the cache out on "
+                           f"the mesh (launch.specs' shardings)")
+
+
+def _lanes(t, ids, dim: int):
+    """Lanes ``ids`` of ``t`` along ``dim`` as a plain tensor; under a mesh
+    the leaf is gathered whole on every rank first."""
+    return sh.full(t)[(slice(None),) * dim + (ids,)]
+
+
+def _write_lanes(t, new, ids, dim: int):
+    """``t``'s lanes ``ids`` along ``dim`` set to ``new`` (plain, the whole
+    lanes) in place.  Under a mesh each rank writes its own shard of ``t``:
+    its lanes among ``ids``, and its slice of every other dim."""
+    if not sh.is_dtensor(t):
+        t[(slice(None),) * dim + (ids,)] = new
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    local = t.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    own = ids - offset[dim]
+    mine = torch.nonzero((own >= 0) & (own < local.shape[dim])).flatten()
+    new = new[tuple(slice(None) if d == dim else slice(o, o + n)
+                    for d, (o, n) in enumerate(zip(offset, local.shape)))]
+    local[(slice(None),) * dim + (own[mine],)] = new.index_select(dim, mine)
 
 
 def _unstack(tree: Dict, start: int, end: int):
@@ -461,6 +487,11 @@ def _chunk_attn_block(p, x, k_cache, v_cache, offsets, chunk_lens, positions,
     dev = x.device
     h = rmsnorm(p["ln1"], x)
     q, k, v = _qkv(p, h, cfg, positions, policy)
+    mesh = q.device_mesh if sh.is_dtensor(q) else None
+    if mesh is not None:
+        # under a mesh the attention runs whole on every rank, over the
+        # chunk's q, k, v gathered and the cache lanes (plain, gathered)
+        q, k, v = sh.full(q), sh.full(k), sh.full(v)
     col = torch.arange(Cb, device=dev)[None, :]
     valid_new = col < chunk_lens[:, None]
     i = torch.arange(smax, device=dev)[None, :]
@@ -483,6 +514,8 @@ def _chunk_attn_block(p, x, k_cache, v_cache, offsets, chunk_lens, positions,
     k_valid = torch.cat([hist_valid, valid_new], dim=1)
     attn = chunk_attention(q, k_all, v_all, positions, k_pos, k_valid,
                            window=cfg.window)
+    if mesh is not None:
+        attn = sh.from_local(attn, mesh)
     # columns not written go to a scratch slot past the cache and are dropped
     write_idx = torch.where(written, write_pos, smax).clamp(max=smax)
     lanes = torch.arange(M, device=dev)[:, None]
@@ -617,7 +650,6 @@ def _mamba_per_rank(p, h, cfg: ArchConfig, state, return_state: bool):
     heads, on the model axis).  Otherwise each rank runs the whole block.
     Returns what ``_mamba`` returns, as DTensors."""
     from torch.distributed.tensor import DTensor, Partial
-    from repro_torch.train import tree as tree_util
     ctx = sh.active()
     mesh = ctx.mesh
     names = list(sh.mesh_axes(mesh))
@@ -1061,12 +1093,7 @@ class LM:
                                      write_mask)
 
     def _decode_step(self, params, cache, tokens, policy, write_mask):
-        if sh.active() is not None and not all(
-                sh.is_dtensor(t) for t in cache.data.values()):
-            raise RuntimeError("decode_step writes a plain cache in place "
-                               "and does not run it under a mesh; lay the "
-                               "cache out on the mesh (launch.specs' "
-                               "shardings)")
+        _refuse_plain_cache(cache, "decode_step")
         cfg = self.cfg
         x = shard(_embed(params["embed"], tokens), "batch", None, None)
         B = x.shape[0]
@@ -1186,19 +1213,33 @@ class LM:
 
         tokens: (M, Cb) right-padded chunk tokens; offsets: (M,) tokens
         already prefilled per lane; chunk_lens: (M,) valid tokens; slot_ids:
-        (M,) cache lanes.  Returns ``(last_logits (M, V), cache)`` with the
-        chunk's KV written at the offsets (ring-aligned on a ring) and the
-        lane lengths advanced to ``offsets + chunk_lens``.  History is read
-        back from the cache, so the cache dtype must equal the compute
-        dtype.
+        (M,) cache lanes (out-of-range = pad lane, dropped by every
+        scatter).  A pad lane reads the last lane, as the JAX package's
+        gather clamps its index, and writes nothing; its row of
+        ``last_logits`` is computed and has no meaning.  Returns
+        ``(last_logits (M, V), cache)`` with the chunk's KV written at the
+        offsets (ring-aligned on a ring) and the lane lengths advanced to
+        ``offsets + chunk_lens``.  History is read back from the cache, so
+        the cache dtype must equal the compute dtype.
 
         The ssm and hybrid families resume each lane from its conv/h
         carries (a lane with offset 0 starts from zeros, whatever the slot
         held) and write them back; their chunks must be exact length
         (``chunk_lens == Cb``: the conv carry is the raw chunk tail), and
         the prefill equals the monolithic one when every non-final boundary
-        lands on a multiple of ``cfg.ssm_scan_chunk``."""
-        _refuse_mesh("prefill_chunk")
+        lands on a multiple of ``cfg.ssm_scan_chunk``.
+
+        Under a mesh the cache's leaves are DTensors laid out as
+        ``launch.specs`` lays them out: every rank gathers the picked lanes
+        whole and runs the chunk's attention over all of them, and each
+        rank writes its own shard back, so the cache keeps its layout."""
+        with sh.mesh_region():
+            return self._prefill_chunk(params, cache, tokens, offsets,
+                                       chunk_lens, slot_ids, policy)
+
+    def _prefill_chunk(self, params, cache, tokens, offsets, chunk_lens,
+                       slot_ids, policy):
+        _refuse_plain_cache(cache, "prefill_chunk")
         cfg, dev = self.cfg, self.device
         x = shard(_embed(params["embed"], tokens), "batch", None, None)
         M, Cb = tokens.shape
@@ -1208,13 +1249,20 @@ class LM:
         slot_ids = torch.as_tensor(slot_ids, dtype=torch.int64, device=dev)
         positions = offsets[:, None] + torch.arange(Cb, device=dev)[None, :]
         data = cache.data
+        # pad lanes read a clamped lane; rows: the real lanes, written at
+        # their slots
+        n_lanes = cache.length.shape[0]
+        reads = slot_ids.clamp(max=n_lanes - 1)
+        rows = torch.nonzero(slot_ids < n_lanes).flatten()
+        slots = slot_ids[rows]
 
         def attend(p, x, i, ring):
             x, k2, v2 = _chunk_attn_block(
-                p, x, data["k"][i][slot_ids], data["v"][i][slot_ids],
-                offsets, chunk_lens, positions, cfg, ring=ring, policy=policy)
-            data["k"][i, slot_ids] = k2
-            data["v"][i, slot_ids] = v2
+                p, x, _lanes(data["k"][i], reads, 0),
+                _lanes(data["v"][i], reads, 0), offsets, chunk_lens,
+                positions, cfg, ring=ring, policy=policy)
+            _write_lanes(data["k"][i], k2[rows], slots, 0)
+            _write_lanes(data["v"][i], v2[rows], slots, 0)
             return x
 
         if cfg.family in _ATTN_FAMILIES:
@@ -1226,7 +1274,7 @@ class LM:
             fresh = offsets == 0
             lanes = []
             for name in ("conv", "h"):
-                t = data[name][:, slot_ids]
+                t = _lanes(data[name], reads, 1)
                 lanes.append(t.masked_fill(
                     fresh.reshape((1, M) + (1,) * (t.dim() - 2)), 0))
             convs, hs, app = [], [], 0
@@ -1238,12 +1286,17 @@ class LM:
                 if shared:
                     x = attend(params["shared_attn"], x, app, False)
                     app += 1
-            data["conv"][:, slot_ids] = torch.cat(convs)
-            data["h"][:, slot_ids] = torch.cat(hs)
+            for name, new in (("conv", convs), ("h", hs)):
+                _write_lanes(data[name], sh.full(torch.cat(new))[:, rows],
+                             slots, 1)
         length = cache.length.clone()
-        length[slot_ids] = offsets + chunk_lens
-        x = rmsnorm(params["final_norm"], x)
-        x = x[torch.arange(M, device=dev), chunk_lens - 1][:, None]
+        _write_lanes(length, (offsets + chunk_lens)[rows], slots, 0)
+        # each lane's last valid position, picked from the whole x as a
+        # plain tensor (the pick's advanced indexing stays off DTensors, as
+        # the cache's does)
+        x = sh.full(rmsnorm(params["final_norm"], x))
+        x = shard(x[torch.arange(M, device=dev), chunk_lens - 1][:, None],
+                  "batch", None, None)
         logits = shard(unembed_apply(params["embed"], x, policy), "batch",
                        None, "tensor")
         return logits[:, 0], DecodeCache(data, length)
@@ -1254,11 +1307,18 @@ class LM:
         ``chunk_size`` tokens.  tokens: (B, S) exact (no pads).  Returns
         ``(last_logits (B, V), cache)`` with per-lane lengths, equal to
         ``prefill``'s for any chunk size obeying the family's boundary
-        contract (see ``prefill_chunk``)."""
+        contract (see ``prefill_chunk``).  Under a mesh the cache is laid
+        out as ``launch.specs`` lays out a decode cache."""
         B, S = tokens.shape
         base = self.init_cache(B, max_len or S)
         cache = DecodeCache(base.data, torch.zeros(B, dtype=torch.int64,
                                                    device=self.device))
+        ctx = sh.active()
+        if ctx is not None:
+            from repro_torch.launch.specs import _cache_specs
+            cache = tree_util.map(
+                lambda t, s: sh.redistribute(t, s.mesh, s.placements), cache,
+                _cache_specs(self, cache, B, ctx))
         slot_ids = torch.arange(B, device=self.device)
         last = None
         for off in range(0, S, chunk_size):

@@ -298,15 +298,92 @@ DECODE_CASES = {
     "sequence": ("tinyllama-1.1b", {"n_kv_heads": 2}, 1),
 }
 DECODE_STEPS, PROMPT, MAX_LEN = 8, 12, 32
+#: chunked prefill: a prompt of CHUNK_PROMPT tokens in chunks of CHUNKS
+#: (the second reads the first's KV back and crosses the ring's seam at
+#: 16), then one chunk of PAD_CHUNK tokens over the first lanes and a pad
+#: lane; ``prefill_chunked`` in chunks of CHUNKED
+CHUNK_PROMPT, CHUNKS, PAD_CHUNK, CHUNKED = 20, (12, 8), 4, 10
+#: the case held against the JAX package's own ``prefill_chunk``
+JAX_CHUNK_CASE = "dense"
 
 
-def mesh_decode(rank):
+def chunk_steps(B, vocab, seed):
+    """The prompt and the ``prefill_chunk`` calls (tokens, offsets,
+    chunk_lens, slot_ids) of a B-lane cache, numpy from ``seed``: CHUNKS
+    over every lane, then a chunk over lanes 0 and 1 (lane 0 alone when
+    B = 1), which continue, and a pad lane with slot id B."""
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, vocab, (B, CHUNK_PROMPT))
+    steps, off = [], 0
+    for n in CHUNKS:
+        steps.append((prompt[:, off:off + n], np.full(B, off), np.full(B, n),
+                      np.arange(B)))
+        off += n
+    slots = np.array(list(range(min(B, 2))) + [B])
+    steps.append((rng.integers(0, vocab, (len(slots), PAD_CHUNK)),
+                  np.where(slots < B, off, 0), np.full(len(slots), PAD_CHUNK),
+                  slots))
+    return prompt, steps
+
+
+def _run_chunks(model, params, cache, steps):
+    """The chunks' real-lane logits and the cache after the last."""
+    logits = []
+    for step in steps:
+        last, cache = model.prefill_chunk(
+            params, cache, *(torch.from_numpy(a) for a in step))
+        logits.append(_np(last)[step[3] < cache.length.shape[0]])
+    return logits, cache
+
+
+def _caches(want, got):
+    return {k: (v.float().numpy().copy(), _np(got.data[k]))
+            for k, v in want.data.items()}
+
+
+def _placements(cache):
+    return {k: [str(p) for p in v.placements] for k, v in cache.data.items()}
+
+
+def _chunk_case(model, params, dp, B, ctx, seed):
+    """``prefill_chunk`` over ``chunk_steps`` and ``prefill_chunked``,
+    unsharded and on the mesh (params ``dp``, the cache laid out by
+    ``launch.specs``)."""
+    from repro_torch.launch.specs import _cache_specs
+    from repro_torch.models.model import DecodeCache
+    prompt, steps = chunk_steps(B, model.cfg.vocab_size, seed)
+    prompt = torch.from_numpy(prompt)
+    base = model.init_cache(B, MAX_LEN)
+    fresh = DecodeCache(base.data, torch.zeros(B, dtype=torch.int64))
+    want, wc = _run_chunks(model, params, tree.map(torch.clone, fresh), steps)
+    wl, wcc = model.prefill_chunked(params, prompt, CHUNKED, max_len=MAX_LEN)
+    with sh.use_mesh(ctx):
+        specs = _cache_specs(model, fresh, B, ctx)
+        dc = tree.map(lambda t, s: sh.redistribute(t, s.mesh, s.placements),
+                      fresh, specs)
+        got, gc = _run_chunks(model, dp, dc, steps)
+        gl, gcc = model.prefill_chunked(dp, prompt, CHUNKED, max_len=MAX_LEN)
+        laid_out = _placements(dc)
+    return dict(
+        logits=list(zip(want, got)), cache=_caches(wc, gc),
+        length=(wc.length.tolist(), sh.full(gc.length).tolist()),
+        placements=(laid_out, _placements(gc)),
+        chunked=dict(logits=(_np(wl), _np(gl)), cache=_caches(wcc, gcc),
+                     length=(wcc.length.tolist(),
+                             sh.full(gcc.length).tolist()),
+                     placements=(laid_out, _placements(gcc))))
+
+
+def mesh_decode(rank, jax_params):
     """For each of ``DECODE_CASES``: a prefill, then ``DECODE_STEPS``
     decode steps unsharded and with the params and the cache laid out on
     (data=4, model=2) as ``launch.specs`` lays them out; each step's
-    logits and the final caches of both."""
+    logits and the final caches of both; then ``_chunk_case``.  Last,
+    ``JAX_CHUNK_CASE``'s chunks on the mesh from the JAX package's
+    parameters, pickled at ``jax_params`` (out["jax_chunks"])."""
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.launch.specs import _cache_specs
+    from repro_torch.models.convert import params_from_jax
     from repro_torch.models.model import DecodeCache
     ctx = sh.make_context(make_host_mesh(data=4, model=2))
     out = {}
@@ -335,15 +412,31 @@ def mesh_decode(rank):
             for t in toks:
                 logits, dc = model.decode_step(dp, dc, t)
                 got.append(_np(logits))
-            placements = {k: [str(p) for p in v.placements]
-                          for k, v in dc.data.items()}
+            placements = _placements(dc)
         assert isinstance(dc, DecodeCache)
         out[name] = dict(
             logits=(np.stack(want), np.stack(got)),
             cache={k: (v.float().numpy().copy(), _np(dc.data[k]))
                    for k, v in cache.data.items()},
             length=(int(cache.length), int(sh.full(dc.length))),
-            placements=placements)
+            placements=placements,
+            chunks=_chunk_case(model, params, dp, B, ctx, seed=2))
+    arch, over, B = DECODE_CASES[JAX_CHUNK_CASE]
+    cfg = dataclasses.replace(f32_reduced(arch), **over)
+    model = LM(cfg, device="cpu")
+    params = params_from_jax(_wait_for_pickle(jax_params), cfg, device="cpu")
+    _, steps = chunk_steps(B, cfg.vocab_size, seed=3)
+    base = model.init_cache(B, MAX_LEN)
+    with sh.use_mesh(ctx):
+        dp = sh.distribute_tree(
+            params, sh.param_specs(params, cfg.n_experts, ctx), ctx)
+        fresh = DecodeCache(base.data, torch.zeros(B, dtype=torch.int64))
+        dc = tree.map(lambda t, s: sh.redistribute(t, s.mesh, s.placements),
+                      fresh, _cache_specs(model, fresh, B, ctx))
+        logits, dc = _run_chunks(model, dp, dc, steps)
+    out["jax_chunks"] = dict(logits=logits,
+                             cache={k: _np(v) for k, v in dc.data.items()},
+                             length=sh.full(dc.length).tolist())
     return out if rank == 0 else None
 
 

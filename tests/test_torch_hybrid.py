@@ -35,6 +35,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.models import LM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.numerics import EmulatedPolicy
+from test_torch_model import pad_lane_chunk
 
 HYBRID = dict(n_layers=5, shared_attn_every=2, ssm_scan_chunk=4)
 POLICIES = [None, ("bf16", "fused")]
@@ -181,6 +182,16 @@ def test_hybrid_prefill_chunk_matches_jax(pair, spec):
                                  policy=tpol)
     _close(tl, jl, spec, "prefill_chunked")
     _close_cache(tcc.data, jcc.data, spec, "prefill_chunked")
+
+
+def test_hybrid_pad_lane_matches_jax(pair):
+    """The 5-layer zamba2 with a pad lane (slot id 2 of a 2-lane cache,
+    ``test_torch_model.pad_lane_chunk``): conv, h and both shared
+    applications' KV in float32 against the JAX package, rtol = atol =
+    1e-4."""
+    jm, jp, tm, tp = pair
+    pad_lane_chunk(jm, jp, tm, tp,
+                   lambda got, want, what: _close(got, want, None, what))
 
 
 @pytest.mark.parametrize("chunk", [4, 8])

@@ -86,9 +86,72 @@ def runs(tmp_path_factory):
         return pickle.load(f), uneven
 
 
+_JAX_CHUNKS = """
+import dataclasses, os, pickle
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType
+from repro.configs.base import get_config
+from repro.models import LM
+from repro.models.model import DecodeCache
+
+cfg = dataclasses.replace(get_config(ARCH).reduced(), dtype="float32",
+                          **OVER)
+model = LM(cfg)
+params = model.init(jax.random.PRNGKey(0))
+with open(PARAMS + ".tmp", "wb") as f:  # the port's ranks wait for it
+    pickle.dump(jax.tree.map(np.asarray, params), f)
+os.rename(PARAMS + ".tmp", PARAMS)
+with open(STEPS, "rb") as f:
+    steps = pickle.load(f)
+try:
+    from repro.launch.specs import _cache_specs
+    from repro.parallel import sharding as sh
+    mesh = jax.make_mesh((4, 2), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    ctx = sh.make_context(mesh)
+    base = model.init_cache(B, MAX_LEN)
+    cache = DecodeCache(base.data, jnp.zeros(B, jnp.int32))
+    logits = []
+    with sh.use_mesh(ctx):
+        dp = jax.device_put(params, sh.named_shardings(
+            sh.param_specs(params, cfg.n_experts, ctx), ctx))
+        dc = jax.device_put(cache, _cache_specs(model, cache, B, ctx))
+        for toks, offs, lens, slots in steps:
+            last, dc = model.prefill_chunk(
+                dp, dc, *(jnp.asarray(a, jnp.int32)
+                          for a in (toks, offs, lens, slots)))
+            logits.append(np.asarray(last)[slots < B])
+    out = dict(logits=logits,
+               cache={k: np.asarray(v) for k, v in dc.data.items()},
+               length=np.asarray(dc.length).tolist())
+except Exception as e:  # the test skips, naming JAX's error
+    out = dict(error=f"{type(e).__name__}: {e}")
+with open(PATH, "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
 @pytest.fixture(scope="module")
-def decode():
-    return spawn(ranks.mesh_decode, 8, timeout=240)[0]
+def decode(tmp_path_factory):
+    """The ranks' decode and chunk cases, and the JAX package's chunks on
+    a (4, 2) mesh of Auto axes computed beside them."""
+    d = tmp_path_factory.mktemp("chunks")
+    params, steps, ref = (str(d / n) for n in ("params.pkl", "steps.pkl",
+                                               "jax.pkl"))
+    arch, over, B = ranks.DECODE_CASES[ranks.JAX_CHUNK_CASE]
+    vocab = ranks.f32_reduced(arch).vocab_size
+    with open(steps, "wb") as f:
+        pickle.dump(ranks.chunk_steps(B, vocab, seed=3)[1], f)
+    code = (f"ARCH = {arch!r}\nOVER = {over!r}\nB = {B}\nMAX_LEN = "
+            f"{ranks.MAX_LEN}\nPARAMS = {params!r}\nSTEPS = {steps!r}\n"
+            f"PATH = {ref!r}\n" + _JAX_CHUNKS)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        jax_side = pool.submit(run_multidevice, code, 8)
+        out = spawn(ranks.mesh_decode, 8, params, timeout=300)[0]
+        jax_side.result()
+    with open(ref, "rb") as f:
+        out["jax_reference"] = pickle.load(f)
+    return out
 
 
 def test_uneven_heads_logits(runs):
@@ -132,3 +195,61 @@ def test_decode_keeps_the_cache_layout(decode):
     assert decode["sequence"]["placements"]["k"] == ["S(2)", "S(3)"]
     assert decode["ssm"]["placements"] == {"conv": ["S(1)", "S(3)"],
                                            "h": ["S(1)", "S(2)"]}
+
+
+def _within(got, want, what):
+    """The mesh contract: within 1e-5 of max |value| (1 at least)."""
+    assert got.shape == want.shape, what
+    bound = 1e-5 * max(np.abs(want).max(), 1.0)
+    assert np.abs(got - want).max() <= bound, what
+
+
+@pytest.mark.parametrize("entry", ["prefill_chunk", "prefill_chunked"])
+@pytest.mark.parametrize("case", list(ranks.DECODE_CASES))
+def test_chunked_prefill_on_a_mesh(decode, case, entry):
+    """Two chunks and a chunk with a pad lane (``prefill_chunk``), and the
+    prompt in chunks (``prefill_chunked``), on (4, 2) against the
+    unsharded port: the real lanes' logits and the caches within 1e-5 of
+    max |value|, the lengths equal, and the cache laid out as it went in
+    (``prefill_chunked``: as ``launch.specs`` lays it out)."""
+    run = decode[case]["chunks"]
+    if entry == "prefill_chunked":
+        run = run["chunked"]
+        _within(*reversed(run["logits"]), "last logits")
+    else:
+        assert len(run["logits"]) == len(ranks.CHUNKS) + 1
+        for i, (want, got) in enumerate(run["logits"]):
+            _within(got, want, f"chunk {i}")
+    for name, (want, got) in run["cache"].items():
+        _within(got, want, name)
+    assert run["length"][0] == run["length"][1]
+    laid_out, back = run["placements"]
+    assert back == laid_out
+
+
+def test_pad_lane_on_a_mesh_writes_nothing(decode):
+    """The pad lane's chunk advances lanes 0 and 1 only (lane 0 of a B = 1
+    cache): lanes 2 and 3 keep the prompt's length on the mesh."""
+    total = ranks.CHUNK_PROMPT + ranks.PAD_CHUNK
+    want = [total, total, ranks.CHUNK_PROMPT, ranks.CHUNK_PROMPT]
+    for case, (_, _, B) in ranks.DECODE_CASES.items():
+        assert decode[case]["chunks"]["length"][1] == want[:B], case
+
+
+def test_prefill_chunk_on_a_mesh_matches_jax(decode):
+    """The ``JAX_CHUNK_CASE`` chunks on (4, 2) from the JAX package's
+    parameters against its own ``prefill_chunk`` on a (4, 2) mesh of Auto
+    axes: the real lanes' logits and the cache within 1e-4, the lengths
+    equal."""
+    ref = decode["jax_reference"]
+    if "error" in ref:
+        pytest.skip(f"the JAX package's sharded prefill_chunk: "
+                    f"{ref['error']}")
+    got = decode["jax_chunks"]
+    assert len(got["logits"]) == len(ref["logits"])
+    for g, w in zip(got["logits"], ref["logits"]):
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() < 1e-4
+    for name, w in ref["cache"].items():
+        assert np.abs(got["cache"][name] - w).max() < 1e-4, name
+    assert got["length"] == ref["length"]

@@ -141,6 +141,77 @@ def test_decode_scan_matches_jax(pair, spec):
         _close(tcache.data[name], jcache.data[name], spec, name)
 
 
+def pad_lane_chunk(jm, jp, tm, tp, close, max_len=16, cb=4):
+    """A chunk of ``cb`` tokens over both lanes of a 2-lane cache, then one
+    over three lanes with slot ids (1, 2, 0): 2 is a pad lane, which reads
+    lane 1 (the JAX package's gather clamps its index) at offset 0 and
+    writes nothing.  Each chunk's real lanes' last logits, every cache leaf
+    and the lengths are held to the JAX package's ``prefill_chunk`` with
+    ``close(got, want, what)``; the first chunk's KV, which the pad lane
+    would overwrite, keeps its bits."""
+    toks = np.random.default_rng(11).integers(0, 256, (5, cb))
+    steps = [(toks[:2], [0, 0], [cb, cb], [0, 1]),
+             (toks[2:], [cb, 0, cb], [cb] * 3, [1, 2, 0])]
+    jc = jm.init_cache(2, max_len)
+    jc = type(jc)(jc.data, jnp.zeros(2, jnp.int32))
+    tc = tm.cache_at_length(tm.init_cache(2, max_len), [0, 0])
+    for i, (chunk, *rest) in enumerate(steps):
+        offs, lens, slots = (np.array(a) for a in rest)
+        before = {k: v.clone() for k, v in tc.data.items()}
+        jlast, jc = jm.prefill_chunk(
+            jp, jc, jnp.asarray(chunk),
+            *(jnp.asarray(a, jnp.int32) for a in (offs, lens, slots)))
+        tlast, tc = tm.prefill_chunk(
+            tp, tc, torch.from_numpy(chunk),
+            *(torch.from_numpy(a) for a in (offs, lens, slots)))
+        real = slots < 2
+        close(tlast[torch.from_numpy(real)], np.asarray(jlast)[real],
+              f"chunk {i} last logits")
+        assert sorted(tc.data) == sorted(jc.data)
+        for name in jc.data:
+            close(tc.data[name], jc.data[name], f"chunk {i} {name}")
+        assert tc.length.tolist() == np.asarray(jc.length).tolist()
+    assert tc.length.tolist() == [2 * cb, 2 * cb]
+    for name in ("k", "v"):
+        if name in tc.data:
+            assert torch.equal(tc.data[name][:, :, :cb],
+                               before[name][:, :, :cb]), name
+
+
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_pad_lane_matches_jax(request, family):
+    """An out-of-range slot id is a pad lane in both packages
+    (``pad_lane_chunk``): tinyllama and falcon-mamba in float32, rtol =
+    atol = 1e-4."""
+    jm, jp, tm, tp = request.getfixturevalue(
+        {"dense": "pair", "ssm": "ssm_pair"}[family])
+    pad_lane_chunk(jm, jp, tm, tp,
+                   lambda got, want, what: _close(got, want, None, what))
+
+
+def test_pad_lane_is_dropped():
+    """The config's own bfloat16 tinyllama: a chunk of 3 tokens over slot
+    ids (0, 2) of a 2-lane cache writes lane 0 and leaves lane 1 as it
+    was, with lengths (3, 0), in both packages."""
+    jcfg = jget_config("tinyllama-1.1b").reduced()
+    jm = JLM(jcfg)
+    tm = LM(get_config("tinyllama-1.1b").reduced(), device="cpu")
+    args = ([0, 0], [3, 3], [0, 2])
+    jc = jm.init_cache(2, 8)
+    jc = type(jc)(jc.data, jnp.zeros(2, jnp.int32))
+    _, jc = jm.prefill_chunk(jm.init(jax.random.PRNGKey(0)), jc,
+                             jnp.ones((2, 3), jnp.int32),
+                             *(jnp.asarray(a, jnp.int32) for a in args))
+    _, tc = tm.prefill_chunk(tm.init(0), tm.cache_at_length(
+        tm.init_cache(2, 8), [0, 0]), torch.ones((2, 3), dtype=torch.int64),
+        *args)
+    assert np.asarray(jc.length).tolist() == tc.length.tolist() == [3, 0]
+    for name in ("k", "v"):
+        assert not np.asarray(jc.data[name][:, 1], np.float32).any()
+        assert not tc.data[name][:, 1].any(), name
+        assert tc.data[name][:, 0, :3].any(), name
+
+
 # ---------------------------------------------- the other dense configs
 #: dense configs with features tinyllama lacks: chatglm3-6b (half-width
 #: RoPE, qkv biases), starcoder2-7b (gelu MLP, qkv biases), deepseek-67b

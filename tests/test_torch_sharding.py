@@ -83,10 +83,10 @@ def test_shard_is_a_noop_without_a_mesh():
 
 @pytest.mark.parametrize("entry", ["decode_step", "prefill_chunk"])
 def test_cache_writers_refuse_a_mesh(entry):
-    """Chunked prefill writes the cache in place, and so does decode on a
-    plain cache (under a mesh it writes each rank's shard of a cache laid
-    out on the mesh, tests/test_torch_mesh_repairs.py): under a mesh they
-    raise before touching a plain cache, and it stays as it was."""
+    """Decode and chunked prefill write the cache in place: under a mesh
+    they run on a cache laid out on the mesh, each rank writing its own
+    shard (tests/test_torch_mesh_repairs.py), and they raise before
+    touching a plain cache, which stays as it was."""
     cfg = get_config("tinyllama-1.1b").reduced()
     model = LM(cfg, device="cpu")
     params = model.init(0)

@@ -37,6 +37,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.models import LM
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.numerics import EmulatedPolicy
+from test_torch_model import pad_lane_chunk
 
 POLICIES = [None, ("bf16", "fused")]
 POLICY_IDS = ["native", "bf16-fused"]
@@ -125,6 +126,17 @@ def test_ring_prefill_chunked_matches_jax(chunk):
     _close_kv(tc.data, {k: v.numpy() for k, v in mc.data.items()}, None,
               "chunked vs monolithic")
     assert tc.length.tolist() == [40, 40]
+
+
+def test_ring_pad_lane_matches_jax():
+    """mixtral's ring of 16 slots with a pad lane (slot id 2 of a 2-lane
+    cache, ``test_torch_model.pad_lane_chunk``) in float32 against the JAX
+    package, rtol = atol = 1e-4."""
+    jm, jp, tm, tp = _pair("mixtral-8x7b")
+    pad_lane_chunk(jm, jp, tm, tp,
+                   lambda got, want, what: _close(got, want, None, what),
+                   max_len=24)
+    assert tm.ring
 
 
 @pytest.mark.parametrize("chunk", [5, 16, 40])

@@ -6,6 +6,12 @@ toolkit:
 
     python3 chip_smoke.py
 
+That is the full run.  ``python3 chip_smoke.py --paths dense`` (or a comma
+list of ``PATHS``: tinyllama, ssm, hybrid, moe, window, vlm, audio, dense,
+dse) runs phases 1 and 2 and only the named paths, in the full run's
+order, with the same last line; its kernel table lists only the kernels
+timed on those paths.
+
 Phases, each of which fails the run (non-zero exit, no result line):
 
   1. the card, the torch/CUDA versions, and the build of every kernel from
@@ -210,6 +216,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      printed; the cost of
      a ``record_function`` scope on the host printed (a decode step enters
      none);
+  3j. (run after 4d, path ``dense``) the dense family's last three
+     configurations, one model at a time, each freed before the next:
+     starcoder2-7b (32 layers, d_model 4608, 36/4 heads of 128, gelu,
+     qkv bias, vocab 49152) and chatglm3-6b (28 layers, d_model 4096,
+     32/2 heads, half RoPE, qkv bias, swiglu, vocab 65024) at full width
+     and depth, and deepseek-67b (d_model 8192, 64/8 heads, vocab 102400,
+     float8_e4m3fn cache) at full width and 24 of its 95 layers (its bf16
+     weights exceed the card at full depth), counters set to 0 just
+     before each: phase 3's 8 requests served in bf16 under phase 3's
+     gates (every token within NEAR_TIE of ``LM.apply``; the model's own
+     bf16 noise floor printed), deepseek-67b's on the fp8 cache timed and
+     each served token's shortfall from ``LM.apply``'s top logit printed
+     with their p50, p99 and max, not gated, and its layer 0's fp8 cache
+     after a 2 x 512 prefill bitwise the CPU's ``to_cache``; one 4x128
+     prefill and 4 decode steps under EmulatedPolicy(bf16, fused), 193,
+     197 and 169 K1 launches a forward; then, outside the window, K1 on
+     layer 0's own operands (every projection and the unembed, at M = 4
+     and 512, bf16 under each style) exactly equal to its plain version
+     with each case's plan printed, layer 0's block in float32 on 2 x 64
+     tokens on the card against the CPU within 1e-4 of max |value|
+     (chatglm3's half RoPE at head dim 128 among them), a profile of one
+     decode step, and for deepseek-67b last the served-token check in
+     float32 with a
+     float32 cache at 8 layers (the bf16 weights widened leaf by leaf),
+     every token within NEAR_TIE of ``LM.apply``;
   4. the ssm path at the full width and depth of falcon-mamba-7b
      (tinyllama freed first), launch counters set to 0 just before:
      ``BatchedServer`` and ``greedy_decode`` as in 3 in bf16, every token
@@ -1052,7 +1083,7 @@ def check_flash_kernels(dev):
 # ---------------------------------------------------------------------------
 def serve_full_width(model, params, rng, noise_floor=False, spec=SERVE,
                      lens=None, prefill_chunk=None, parting_on_decode=False,
-                     greedy=None):
+                     greedy=None, gate=True):
     """``BatchedServer`` answers ``spec``'s requests (after a warm-up;
     prompts of ``lens`` tokens, or of lengths drawn from ``spec``'s range;
     with ``prefill_chunk`` the server prefills in chunks), then
@@ -1082,12 +1113,14 @@ def serve_full_width(model, params, rng, noise_floor=False, spec=SERVE,
     turns a last-bit difference between the server's shapes and the
     reference's into another expert for a token, a deviation no noise
     floor sampled at a few positions bounds; its float32 run carries the
-    gate.
+    gate.  With ``gate`` False no model is held beyond that either (the
+    caller measures the served tokens, ``served_vs_apply``).
     """
     from repro_torch.serve import BatchedServer, Request, greedy_decode
     s = spec
     reference = "decode" if model.cache_dtype != model.dtype else "apply"
-    gate_tokens = not model.cfg.n_experts or model.dtype == torch.float32
+    gate_tokens = gate and (not model.cfg.n_experts
+                            or model.dtype == torch.float32)
     if lens is None:
         lens = rng.integers(s["prompt_lo"], s["prompt_hi"] + 1,
                             s["requests"])
@@ -1317,6 +1350,31 @@ def stream_vs_apply(model, params, prompt, stream):
     shortfall = top2[:, 0] - pos.gather(-1, chosen)[:, 0]
     return (shortfall, pos.abs().max(-1).values, top2[:, 0] - top2[:, 1],
             pos[0])
+
+
+def served_vs_apply(model, params, rec):
+    """How far each token that ``serve_full_width`` served (``rec``) falls
+    short of ``LM.apply``'s top logit on its own prefix, as a share of
+    max |logit| there: printed, p50, p99 and max over every served token,
+    not gated."""
+    shares, exact = [], 0
+    for prompt, stream in zip(rec["prompts"], rec["outputs"]):
+        shortfall, scale, _, _ = stream_vs_apply(model, params, prompt,
+                                                 stream)
+        shares.append(shortfall / scale)
+        exact += int((shortfall == 0).sum())
+    shares = torch.cat(shares).double()
+    q = torch.quantile(shares, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                            device=shares.device))
+    out = {"tokens": int(shares.numel()), "p50": float(q[0]),
+           "p99": float(q[1]), "max": float(shares.max()),
+           "tokens_at_apply_argmax": exact,
+           "within_near_tie": int((shares <= NEAR_TIE).sum())}
+    emit({"phase": "serve_vs_apply", "arch": model.cfg.name,
+          "kv_cache_dtype": str(model.cache_dtype), "dtype": model.cfg.dtype,
+          "gated": False, "shortfall_share_of_max_logit": out,
+          "shares": shares.tolist()})
+    return out
 
 
 def hold_to_apply(model, params, reqs, prompts, what):
@@ -4436,26 +4494,14 @@ def moe_layer0_vs_cpu(model, params, x):
           "entries_differing": int((out1.cpu() != ref).sum())})
 
 
-def moe_f32(cfg, box, dev):
-    """The moe phase's served-token check in float32 at MOE_F32_LAYERS of
-    the model's depth, at ``capacity_factor = n_experts``, with a float32
-    KV cache: every token, and greedy_decode's, within NEAR_TIE of
-    ``LM.apply`` on its prefix.
-    The config's fp8 cache is left out here: it rounds the last-bit
-    differences between the server's batched shapes and a one-sequence
-    reference to whole fp8 steps (an e4m3 step is 6-12% of a value), and
-    at 28 layers that moved one served token of 256 to 9.2% of max |logit|
-    short of the single-lane decode path (chip run 1 of PR 20's review).
-    ``box`` holds the only reference to the bf16 parameters: they are
-    widened (exactly) one leaf at a time, largest first, each bf16 leaf
-    freed once widened."""
-    import dataclasses
-    from repro_torch.models import LM
-    model = LM(dataclasses.replace(cfg, dtype="float32", kv_cache_dtype=None,
-                                   capacity_factor=float(cfg.n_experts),
-                                   n_layers=MOE_F32_LAYERS), device=dev)
+def widened(box, layers):
+    """``box``'s bf16 parameters (its only reference) cut to their first
+    ``layers`` layers and widened (exactly) to float32 one leaf at a time,
+    largest first, each bf16 leaf freed once widened: the card never holds
+    both copies of more than one leaf.  Returns the parameters and the
+    peak bytes while widening."""
     params = box.pop()
-    params["layers"] = tree_map(lambda t: t[:MOE_F32_LAYERS].clone(),
+    params["layers"] = tree_map(lambda t: t[:layers].clone(),
                                 params["layers"])
     release()
     leaves = []
@@ -4472,11 +4518,30 @@ def moe_f32(cfg, box, dev):
     for tree, key in sorted(leaves, key=lambda e: -e[0][e[1]].numel()):
         tree[key] = tree[key].float()
         release()
-    widened = torch.cuda.max_memory_allocated()
+    return params, torch.cuda.max_memory_allocated()
+
+
+def serve_f32_widened(cfg, box, dev, layers):
+    """``serve_f32`` for a model too large to hold twice: ``cfg``'s
+    requests served in float32 at ``layers`` of its depth with a float32
+    KV cache, every token, and greedy_decode's, within NEAR_TIE of
+    ``LM.apply`` on its prefix.  ``box`` holds the only reference to the
+    bf16 parameters (``widened``).
+    A config's fp8 cache is left out here: it rounds the last-bit
+    differences between the server's batched shapes and a one-sequence
+    reference to whole fp8 steps (an e4m3 step is 6-12% of a value), and
+    at 28 layers of deepseek-moe-16b that moved one served token of 256 to
+    9.2% of max |logit| short of the single-lane decode path (chip run 1
+    of PR 20's review)."""
+    import dataclasses
+    from repro_torch.models import LM
+    model = LM(dataclasses.replace(cfg, dtype="float32", kv_cache_dtype=None,
+                                   n_layers=layers), device=dev)
+    params, peak = widened(box, layers)
     emit({"phase": "init", "arch": cfg.name, "dtype": "float32",
-          "layers": MOE_F32_LAYERS, "cut_from_layers": cfg.n_layers,
+          "layers": layers, "cut_from_layers": cfg.n_layers,
           "device_bytes": torch.cuda.memory_allocated(),
-          "peak_bytes_while_widening": widened})
+          "peak_bytes_while_widening": peak})
     serve_full_width(model, params, np.random.default_rng(SEED + 1))
     emit({"phase": "memory", "arch": cfg.name, "dtype": "float32",
           "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -4493,7 +4558,7 @@ def moe_path(dev, drive, rng):
     reference says nothing of a batched server's tokens.  The reference is
     ``LM.apply``, held in float32 with a float32 cache within NEAR_TIE as
     the phase's last step (``serve_full_width`` gates no bf16 MoE token;
-    the bf16 run on the fp8 cache is timed).
+    the bf16 run on the fp8 cache is timed; ``serve_f32_widened``).
     At 1.25 the same requests are served and their dropped shares and
     token differences printed; two identical prefills must be bitwise
     equal; one emulated prefill makes 113 K1 launches; layer 0's MoE is
@@ -4503,8 +4568,9 @@ def moe_path(dev, drive, rng):
     from repro_torch.models import LM
     cfg = get_config(MOE_ARCH)
     model, params = init_model(cfg, dev)
-    nodrop = LM(dataclasses.replace(cfg, capacity_factor=float(
-        cfg.n_experts)), device=dev)
+    nodrop_cfg = dataclasses.replace(cfg, capacity_factor=float(
+        cfg.n_experts))
+    nodrop = LM(nodrop_cfg, device=dev)
     per_fwd = 4 * cfg.n_layers + 1
     rec = {}
     drive(MOE_ARCH, ("fused_qmm",),
@@ -4518,7 +4584,7 @@ def moe_path(dev, drive, rng):
     box = [params]
     del model, nodrop, params, rec
     release()
-    moe_f32(cfg, box, dev)
+    serve_f32_widened(nodrop_cfg, box, dev, MOE_F32_LAYERS)
 
 
 def window_chunked(model, params):
@@ -4739,17 +4805,17 @@ def vlm_path(dev, drive, rng):
     profile_decode(model, params, rng)
 
 
-def fp8_cache_vs_cpu(model, params, kw):
-    """Layer 0's float8 cache after a prefill of the frames, against the
-    CPU's ``to_cache`` of the same K/V (the card's layer-0 projections, as
-    ``attn_block_apply`` computes them): bitwise."""
+def fp8_cache_vs_cpu(model, params, toks=None, **kw):
+    """Layer 0's float8 cache after a prefill of ``toks`` (or of the frames
+    in ``kw``), against the CPU's ``to_cache`` of the same K/V (the card's
+    layer-0 projections, as ``attn_block_apply`` computes them):
+    bitwise."""
     from repro_torch.models.layers import rmsnorm
     from repro_torch.models.model import _layer, _qkv, to_cache
     cfg = model.cfg
-    frames = kw["frame_embeds"]
-    _, cache = model.prefill(params, None, frame_embeds=frames)
+    _, cache = model.prefill(params, toks, **kw)
     p = _layer(params["layers"], 0)
-    x = frames.to(model.dtype)
+    x = model._embed_inputs(params, toks, None, kw.get("frame_embeds"))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     _, k, v = _qkv(p, rmsnorm(p["ln1"], x), cfg, positions, None)
     out = {}
@@ -4761,7 +4827,9 @@ def fp8_cache_vs_cpu(model, params, kw):
               "entries differ from the CPU's to_cache")
     emit({"phase": "check", "what": "layer-0 float8_e4m3fn KV cache after "
           "a prefill, card vs the CPU's to_cache", "arch": cfg.name,
-          "entries": int(k.numel()), "differing": out})
+          "input": "tokens" if toks is not None else sorted(kw),
+          "shape": list(x.shape[:2]), "entries": int(k.numel()),
+          "differing": out})
 
 
 def audio_f32(cfg, box, dev):
@@ -4808,7 +4876,7 @@ def audio_path(dev, drive, rng):
               **rec})
 
     drive(AUDIO_ARCH, ("fused_qmm",), bf16_embeds,
-          lambda: fp8_cache_vs_cpu(model, params, inputs["kw"]),
+          lambda: fp8_cache_vs_cpu(model, params, **inputs["kw"]),
           lambda: emulated_forwards(model, params, rng, per_fwd,
                                     embeds=True))
     profile_decode(model, params, rng)
@@ -4816,6 +4884,193 @@ def audio_path(dev, drive, rng):
     del model, params, inputs
     release()
     audio_f32(cfg, box, dev)
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: the dense family's last three configurations at full width
+# ---------------------------------------------------------------------------
+DENSE_ARCHS = ("starcoder2-7b", "chatglm3-6b", "deepseek-67b")
+# deepseek-67b's 95 layers hold ~133 GB of bf16 weights, more than one
+# H100's 80 GB: its bf16 run keeps every width and this many layers, and
+# its float32 run (a float32 cache in place of the fp8 one) this many
+DEEPSEEK_LAYERS = 24
+DEEPSEEK_F32_LAYERS = 8
+# the decode steps of each dense path's emulated forwards (EMU's prefill)
+DENSE_EMU_STEPS = 4
+# layer 0's fp8 cache is held to the CPU's after a prefill of this shape
+DENSE_FP8_PREFILL = dict(batch=2, prompt=512)
+# layer 0's block in float32 on this many tokens, card against the CPU:
+# both round every op to f32, but cuBLAS and the CPU's BLAS sum the
+# 4096- to 22016-deep dots (and the softmax its rows) in other orders,
+# ~1e-6 of a value apart
+DENSE_BLOCK = dict(batch=2, prompt=64)
+BLOCK_VS_CPU = 1e-4
+# K1 on layer 0's operands against the plain K1, bf16, each style
+DENSE_K1_STYLES = ("fused", "cascade", "cascade_fwd")
+
+
+def dense_cfg(arch):
+    """The config a dense path runs and its ``init`` record: full width,
+    and for deepseek-67b DEEPSEEK_LAYERS of its 95 layers."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    full = get_config(arch)
+    if arch != "deepseek-67b":
+        return full, {}
+    return dataclasses.replace(full, n_layers=DEEPSEEK_LAYERS), {
+        "reduced": {"n_layers": [full.n_layers, DEEPSEEK_LAYERS],
+                    "why": f"{full.param_count() * 2 / 1e9:.0f} GB of bf16 "
+                    "weights at 95 layers exceed one H100's 80 GB"}}
+
+
+def layer0_k1_vs_plain(model, params, rng):
+    """K1 on layer 0's projections and the unembed at M = 512 (EMU's 4 x 128
+    prefill) and M = 4 (each sequence's last position, a 4-slot decode
+    step's rows), bf16 under each of DENSE_K1_STYLES, exactly equal to the
+    plain K1 on the same operands, each case with the schedule ``plan_qmm``
+    picked for it.  The operands are the path's: layer 0's weights and the
+    table's transpose read in place, the normed embeddings of EMU's tokens
+    (the q, k, v, o, MLP and unembed inputs: o's width is d_model in these
+    configs) and the MLP's hidden from them (the down projection's).  Runs
+    outside the counted window: these launches only compare.  Returns the
+    largest error (0.0: exact)."""
+    import torch.nn.functional as Fn
+    from repro_torch.core import formats as F
+    from repro_torch.kernels.fused import (fused_qmm, fused_qmm_ref,
+                                           plan_qmm, sm_count)
+    from repro_torch.models.layers import embed_apply, rmsnorm
+    from repro_torch.models.model import _layer
+    cfg, dev = model.cfg, model.device
+    B, S = EMU["batch"], EMU["prompt"]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device=dev)
+    lp = _layer(params["layers"], 0)
+    h = rmsnorm(lp["ln1"], embed_apply(params["embed"], toks)).reshape(
+        B * S, -1)
+    mlp = lp["mlp"]
+    up = h @ mlp["w_up"]
+    if cfg.mlp_act == "swiglu":
+        hid = Fn.silu((h @ mlp["w_gate"]).float()).to(h.dtype) * up
+    else:
+        hid = Fn.gelu(up.float(), approximate="tanh").to(h.dtype)
+    rows = {cfg.d_model: h, cfg.d_ff: hid}
+    check(cfg.n_heads * cfg.head_dim == cfg.d_model, f"{cfg.name}: o's "
+          "input is not d_model wide")
+    weights = {name: lp[name] for name in ("wq", "wk", "wv", "wo")}
+    weights.update(mlp)
+    weights["unembed"] = params["embed"].T
+    sms = sm_count(dev)
+    cases, worst, n_checks = [], 0.0, 0
+    for m in (4, B * S):
+        for name, b in weights.items():
+            k, n = b.shape
+            a = rows[k] if m == B * S else rows[k][S - 1::S].contiguous()
+            plan = plan_qmm(1, m, n, k, sms)
+            cases.append(dict(name=name, m=m, k=k, n=n,
+                              b_strides=list(b.stride()), **vars(plan)))
+            for style in DENSE_K1_STYLES:
+                got = fused_qmm(a, b, fmt=F.BF16, style=style)
+                want = fused_qmm_ref(a, b, fmt=F.BF16, style=style, bm=128,
+                                     bn=128)
+                bad = mismatches(got, want)
+                check(bad == 0, f"{cfg.name} K1 {name} ({m}, {k}) @ ({k}, "
+                      f"{n}) bf16 {style} ({plan.schedule}): {bad} entries "
+                      f"differ (max err {max_abs_err(got, want)})")
+                worst = max(worst, max_abs_err(got, want))
+                n_checks += 1
+            del a, got, want
+    torch.cuda.synchronize()
+    emit({"phase": "check", "kernel": "fused_qmm", "arch": cfg.name,
+          "what": "layer 0's projections and the unembed on the path's "
+          "operands, M = 4 and 512", "cases": cases, "checks": n_checks,
+          "sm_count": sms, "schedules": sorted({c["schedule"]
+                                                for c in cases}),
+          "format": "bf16", "styles": list(DENSE_K1_STYLES),
+          "tolerance": "exact: every entry equal to the plain version's",
+          "max_abs_err": worst})
+    return worst
+
+
+def block0_vs_cpu(model, params, rng):
+    """Layer 0's block (``attn_block_apply``: norms, q/k/v with the
+    config's bias and RoPE style at head dim 128, attention, o, the MLP)
+    in float32 on DENSE_BLOCK's tokens, on the card and on the CPU from the
+    same widened weights and embeddings: the output and the block's k and
+    v within BLOCK_VS_CPU of their max |value|."""
+    import dataclasses
+    from repro_torch.models.model import _layer, attn_block_apply
+    cfg, dev = dataclasses.replace(model.cfg, dtype="float32"), model.device
+    B, S = DENSE_BLOCK["batch"], DENSE_BLOCK["prompt"]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device=dev)
+    lp = tree_map(lambda t: t.float(), _layer(params["layers"], 0))
+    x = params["embed"][toks].float()
+    positions = torch.arange(S, device=dev)[None, :]
+    out, seconds = {}, {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _, (k, v) = attn_block_apply(tree_to(lp, d), x.to(d),
+                                        positions.to(d), cfg)
+        torch.cuda.synchronize()
+        seconds[where] = time.perf_counter() - t0
+        out[where] = {"out": y.cpu(), "k": k.cpu(), "v": v.cpu()}
+    gaps = {name: float((out["card"][name] - want).abs().max()
+                        / want.abs().max())
+            for name, want in out["cpu"].items()}
+    for name, gap in gaps.items():
+        check(gap <= BLOCK_VS_CPU, f"{cfg.name} layer 0 {name}: card and CPU "
+              f"{gap} of max |value| apart (limit {BLOCK_VS_CPU})")
+    emit({"phase": "check", "what": "layer 0's block in float32, card vs "
+          "CPU", "arch": cfg.name, "rope_style": cfg.rope_style,
+          "head_dim": cfg.head_dim, "qkv_bias": cfg.qkv_bias,
+          "mlp_act": cfg.mlp_act, "batch": B, "prompt": S,
+          "rel_gap_of_max_value": gaps, "limit": BLOCK_VS_CPU,
+          "seconds": seconds})
+
+
+def dense_path(arch, dev, drive, rng):
+    """One dense config at full width and depth (deepseek-67b at
+    DEEPSEEK_LAYERS of its 95 layers, with its float8_e4m3fn cache): the
+    serve phase's requests (every token within NEAR_TIE of ``LM.apply``,
+    the model's own bf16 noise floor printed; with the fp8 cache timed,
+    each served token's gap to ``LM.apply`` printed, not gated, and layer
+    0's fp8 cache after a prefill bitwise the CPU's ``to_cache``), one
+    emulated 4x128 prefill and DENSE_EMU_STEPS decode steps under
+    EmulatedPolicy(bf16, fused) (every projection of every layer and the
+    unembed through K1), then
+    K1 on layer 0's operands exactly equal to its plain version, layer 0's
+    block in float32 card against CPU, a profile of one decode step, and
+    for the fp8 cache last the served-token check in float32 with a
+    float32 cache at DEEPSEEK_F32_LAYERS layers.  Returns K1's largest
+    error against its plain version."""
+    cfg, record = dense_cfg(arch)
+    model, params = init_model(cfg, dev, **record)
+    fp8 = model.cache_dtype == torch.float8_e4m3fn
+    projections = 4 + (3 if cfg.mlp_act == "swiglu" else 2)
+    per_fwd = projections * cfg.n_layers + 1
+    rec = {}
+    steps = [lambda: rec.update(serve_full_width(
+        model, params, np.random.default_rng(SEED + 1), gate=not fp8))]
+    if fp8:
+        f = DENSE_FP8_PREFILL
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+            f["batch"], f["prompt"])), device=dev)
+        steps += [lambda: served_vs_apply(model, params, rec),
+                  lambda: fp8_cache_vs_cpu(model, params, toks)]
+    steps.append(lambda: emulated_forwards(model, params, rng, per_fwd,
+                                           steps=DENSE_EMU_STEPS))
+    drive(arch, ("fused_qmm",), *steps)
+    err = layer0_k1_vs_plain(model, params, rng)
+    block0_vs_cpu(model, params, rng)
+    profile_decode(model, params, rng)
+    if fp8:
+        box = [params]
+        del model, params, rec, steps
+        release()
+        from repro_torch.configs.base import get_config
+        serve_f32_widened(get_config(arch), box, dev, DEEPSEEK_F32_LAYERS)
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -5127,60 +5382,17 @@ def numpy_tune(profile, precision, params, dev):
     return res.design_of(i).name, float(res.vdd[i]), float(res.vbb[i])
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        print("chip_smoke: run from a checkout of the repository",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
+def tinyllama_paths(dev, drive, rng, smi, errs):
+    """Phases 3-3i and 3g on tinyllama-1.1b (and benchgen's specs): the
+    dense, attention, chip, trace, resilience, cluster, train, distributed,
+    dryrun and benchgen paths.  Returns K1-K4's kernel rows and the card's
+    calibration with its seconds."""
     from repro_torch.benchgen import calibrate, validate
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.fma_emu import fma_emu_matmul
-    from repro_torch.kernels.fused import (fused_flash_attention, fused_qmm,
-                                           ssm_scan_quantized)
-    from repro_torch.kernels.quantize_kernel import quantize_nd
-    from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.models import LM
-    dev = torch.device("cuda")
-    t_start = time.perf_counter()
-
-    smi = card_and_build()
-    errs = check_kernels(dev)
-    check_rounding(dev)
-    errs.update(check_scan_kernels(dev))
-    errs.update(check_flash_kernels(dev))
-    check_small_lm(dev)
-
-    wrappers = {"fused_qmm": fused_qmm, "quantize_nd": quantize_nd,
-                "fma_emu_matmul": fma_emu_matmul,
-                "fused_flash_attention": fused_flash_attention,
-                "ssm_scan_quantized": ssm_scan_quantized,
-                "ssm_scan": ssm_scan}
-    paths = {}
-
-    def drive(path, kernels_of_path, *steps):
-        """The path's steps with every launch count set to 0 just before
-        and read just after; each kernel of the path must have launched."""
-        for fn in wrappers.values():
-            fn.launches = 0
-        out = [step() for step in steps]
-        torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in wrappers.items()}
-        emit({"phase": "launches", "path": path, "counts": counts})
-        for name in kernels_of_path:
-            check(counts[name] > 0, f"{name} was not launched on the "
-                  f"{path} path")
-        paths[path] = counts
-        return counts, out
-
-    # the dense path: tinyllama-1.1b
     cfg = get_config(ARCH)
     model = LM(cfg, device=dev)
     params = model.init(seed=SEED)
-    rng = np.random.default_rng(SEED)
     dense, _ = drive(ARCH, ("fused_qmm", "quantize_nd", "fma_emu_matmul"),
                      lambda: serve_full_width(model, params, rng),
                      lambda: emulated_full_width(model, params, rng),
@@ -5197,14 +5409,7 @@ def main():
     del flash_operands_
     # the chip facade: fleet routing, energy and the routed units'
     # numerics through K1, on the card's own calibration of the model
-    from repro_torch.core import energy_model
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tech = energy_model.calibrate(device=dev)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    emit({"phase": "chip", "stage": "calibrate", "seconds": fit_s,
-          "card": smi})
+    tech, fit_s = card_calibration(dev, smi)
     drive(f"{ARCH} chip", ("fused_qmm",),
           lambda: chip_full_width(model, params,
                                   np.random.default_rng(SEED + 2), tech))
@@ -5260,20 +5465,27 @@ def main():
                      "ssm_scan_quantized"),
         lambda: validate(specs, machine=machine, device=dev))
     benchgen_report(dev, specs, machine, bench)
-    del model, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    return kernels, tech, fit_s
 
-    # the ssm path: falcon-mamba-7b
-    scfg = get_config(SSM_ARCH)
-    smodel = LM(scfg, device=dev)
-    t0 = time.perf_counter()
-    sparams = smodel.init(seed=SEED)
+
+def card_calibration(dev, smi):
+    """The DSE core's ``calibrate`` on the card, and its seconds."""
+    from repro_torch.core import energy_model
     torch.cuda.synchronize()
-    emit({"phase": "init", "arch": SSM_ARCH, "seconds":
-          time.perf_counter() - t0, "parameters": sum(
-              t.numel() for t in tree_leaves(sparams)),
-          "device_bytes": torch.cuda.memory_allocated()})
+    t0 = time.perf_counter()
+    tech = energy_model.calibrate(device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    emit({"phase": "chip", "stage": "calibrate", "seconds": fit_s,
+          "card": smi})
+    return tech, fit_s
+
+
+def ssm_path(dev, drive, rng, errs):
+    """Phase 4 on falcon-mamba-7b; returns K5's and K6's kernel rows."""
+    from repro_torch.configs.base import get_config
+    scfg = get_config(SSM_ARCH)
+    smodel, sparams = init_model(scfg, dev)
     ssm_counts, (_, _, (operands, toks, last)) = drive(
         SSM_ARCH, ("ssm_scan", "ssm_scan_quantized", "fused_qmm"),
         lambda: serve_full_width(smodel, sparams,
@@ -5283,29 +5495,115 @@ def main():
         lambda: ssm_kernels_full_width(smodel, sparams, rng))
     errs["fused_qmm"] = max(errs["fused_qmm"],
                             check_ssm_unembed(smodel, sparams, toks, last))
-    kernels += time_scan_kernels(dev, operands, ssm_counts, errs)
+    kernels = time_scan_kernels(dev, operands, ssm_counts, errs)
     del operands
     profile_decode(smodel, sparams, rng)
-    del smodel, sparams
-    release()
+    return kernels
 
-    # the hybrid, MoE, sliding-window, vlm and audio families, one model
-    # at a time
-    for path in (hybrid_path, moe_path, window_path, vlm_path, audio_path):
-        path(dev, drive, rng)
+
+#: the paths ``--paths`` names, in the order of a full run
+PATHS = ("tinyllama", "ssm", "hybrid", "moe", "window", "vlm", "audio",
+         "dense", "dse")
+
+
+def selected_paths(args):
+    """The paths of ``--paths a,b`` in a full run's order, all of them with
+    no argument; None for anything else."""
+    if not args:
+        return PATHS
+    if len(args) != 2 or args[0] != "--paths":
+        return None
+    names = set(args[1].split(","))
+    if not names or names - set(PATHS):
+        return None
+    return tuple(p for p in PATHS if p in names)
+
+
+def main(paths=PATHS):
+    """The build and the kernel checks, then ``paths`` (PATHS: the full
+    run)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.fma_emu import fma_emu_matmul
+    from repro_torch.kernels.fused import (fused_flash_attention, fused_qmm,
+                                           ssm_scan_quantized)
+    from repro_torch.kernels.quantize_kernel import quantize_nd
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    smi = card_and_build()
+    emit({"phase": "paths", "paths": list(paths), "full_run": paths == PATHS})
+    errs = check_kernels(dev)
+    check_rounding(dev)
+    errs.update(check_scan_kernels(dev))
+    errs.update(check_flash_kernels(dev))
+    check_small_lm(dev)
+
+    wrappers = {"fused_qmm": fused_qmm, "quantize_nd": quantize_nd,
+                "fma_emu_matmul": fma_emu_matmul,
+                "fused_flash_attention": fused_flash_attention,
+                "ssm_scan_quantized": ssm_scan_quantized,
+                "ssm_scan": ssm_scan}
+    paths_run = {}
+
+    def drive(path, kernels_of_path, *steps):
+        """The path's steps with every launch count set to 0 just before
+        and read just after; each kernel of the path must have launched."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = [step() for step in steps]
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        emit({"phase": "launches", "path": path, "counts": counts})
+        for name in kernels_of_path:
+            check(counts[name] > 0, f"{name} was not launched on the "
+                  f"{path} path")
+        paths_run[path] = counts
+        return counts, out
+
+    rng = np.random.default_rng(SEED)
+    kernels, tech = [], None
+    if "tinyllama" in paths:
+        kernels, tech, fit_s = tinyllama_paths(dev, drive, rng, smi, errs)
         release()
+    if "ssm" in paths:
+        kernels += ssm_path(dev, drive, rng, errs)
+        release()
+    # the hybrid, MoE, sliding-window, vlm and audio families, then the
+    # dense family's last three configs, one model at a time
+    for name, path in (("hybrid", hybrid_path), ("moe", moe_path),
+                       ("window", window_path), ("vlm", vlm_path),
+                       ("audio", audio_path)):
+        if name in paths:
+            path(dev, drive, rng)
+            release()
+    if "dense" in paths:
+        for arch in DENSE_ARCHS:
+            errs["fused_qmm"] = max(errs["fused_qmm"],
+                                    dense_path(arch, dev, drive, rng))
+            release()
     for row in kernels:  # launches on every path of this run
         row["max_abs_err"] = errs[row["name"]]
         by_path = {path: counts[row["name"]]
-                   for path, counts in paths.items()}
+                   for path, counts in paths_run.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
     # the paper's DSE core: no kernel of K1-K6, so no launch window
-    dse_full_size(dev, smi, tech, fit_s)
+    if "dse" in paths:
+        if tech is None:
+            tech, fit_s = card_calibration(dev, smi)
+        dse_full_size(dev, smi, tech, fit_s)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "card": smi})
+          "paths": list(paths), "card": smi})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5319,4 +5617,9 @@ if __name__ == "__main__":
         sys.exit(train_restart_child())
     if sys.argv[1:2] == ["--dryrun"] and len(sys.argv) == 3:
         sys.exit(dryrun_child(sys.argv[2]))
-    sys.exit(main())
+    paths = selected_paths(sys.argv[1:])
+    if paths is None:
+        print(f"usage: chip_smoke.py [--paths {','.join(PATHS)}]",
+              file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(paths))

@@ -18,10 +18,10 @@ four).  This module is the single consumer-facing surface for that idea:
     with adaptive body bias per unit.
 
 ``default_policy(precision).unit_for_phase`` / ``numerics_for_phase`` /
-``select_fpu`` / ``step_energy_telemetry`` answer what the JAX package's
-deprecated ``precision_policy`` shim asks, which the port does not carry;
-``tune_chip`` with a 2-unit budget degenerates to exactly the Table I
-throughput/latency split the autotuner picks per workload.
+``select_fpu`` / ``step_energy_telemetry`` answer what the deprecated
+``core.precision_policy`` shim (kept, as in the JAX package, for old
+imports) asks; ``tune_chip`` with a 2-unit budget degenerates to exactly
+the Table I throughput/latency split the autotuner picks per workload.
 
 The sweeps behind ``tune_chip``, ``default_chip`` and the calibration run on
 ``device`` (the card unless the caller passes ``device='cpu'``); routing,

@@ -120,12 +120,21 @@ def bucket_length(n: int, *, lo: int = 8) -> int:
     return b
 
 
+def _flops_per_token(cfg, flops_per_token: Optional[float]) -> float:
+    """The FLOPs charged a token: ``None`` means ``2 * active params`` of
+    the config (the roofline inference estimate), a falsy value 0.0."""
+    if flops_per_token is None and hasattr(cfg, "active_param_count"):
+        flops_per_token = 2.0 * cfg.active_param_count()
+    return flops_per_token or 0.0
+
+
 class BatchedServer:
     """Fixed-slot continuous batching server around one LM.
 
     ``chip_policy`` (a ``core.chip.ChipPolicy``) enables fleet routing and
-    per-unit energy accounting, at ``2 * active params`` of the model
-    config per token.  Without a policy the slots form
+    per-unit energy accounting, at ``flops_per_token`` FLOPs a token
+    (``None``: ``2 * active params`` of the model config; a falsy value
+    charges nothing).  Without a policy the slots form
     one fleet, named ''.  ``dispatch_tokens`` is the fused decode depth
     ``run()`` uses per dispatch; ``clock`` is the deadline time source;
     ``deadline_routing`` splits each precision's traffic across
@@ -135,6 +144,7 @@ class BatchedServer:
 
     def __init__(self, model: LM, params, *, slots: int, max_len: int,
                  pad_id: int = 0, chip_policy=None,
+                 flops_per_token: Optional[float] = None,
                  dispatch_tokens: int = 8,
                  clock: Callable[[], float] = time.monotonic,
                  deadline_routing: bool = False,
@@ -173,7 +183,7 @@ class BatchedServer:
         self._deadline_routing = deadline_routing
         self._accuracy_fleets = tuple(accuracy_fleets)
         self._precision = getattr(self.cfg, "numerics_precision", None)
-        self.flops_per_token = 2.0 * self.cfg.active_param_count()
+        self.flops_per_token = _flops_per_token(self.cfg, flops_per_token)
         self._unit_energy_j: Dict[str, float] = {}
         self._prefill_pos: Dict[int, int] = {}  # slot -> tokens prefilled
         self._slot_pf_budget = [0] * slots  # decode budget armed on finish
@@ -1038,10 +1048,12 @@ class ReferenceServer:
     """The per-token engine: one host sync and one ``ChipPolicy`` charge
     per decoded token, one eager prefill per admitted prompt, the slot's
     whole cache lane rewritten at each admission.  Kept as the baseline
-    the batched engine's tokens and energy are held to."""
+    the batched engine's tokens and energy are held to.
+    ``flops_per_token`` as ``BatchedServer``'s."""
 
     def __init__(self, model: LM, params, *, slots: int, max_len: int,
-                 pad_id: int = 0, chip_policy=None):
+                 pad_id: int = 0, chip_policy=None,
+                 flops_per_token: Optional[float] = None):
         self.model = model
         self.params = params
         self.slots = slots
@@ -1050,7 +1062,7 @@ class ReferenceServer:
         self.cfg = model.cfg
         self.chip_policy = chip_policy
         self._precision = getattr(self.cfg, "numerics_precision", None)
-        self.flops_per_token = 2.0 * self.cfg.active_param_count()
+        self.flops_per_token = _flops_per_token(self.cfg, flops_per_token)
         self.tokens_decoded = 0
         self._unit_energy_j: Dict[str, float] = {}
         self._queue: List[Request] = []

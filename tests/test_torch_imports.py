@@ -6,11 +6,17 @@ wrappers accept, and that its configuration data is the JAX package's.
   * an entry point given no device raises when CUDA is absent: there is no
     silent CPU fallback;
   * the wrappers' operand checks and the build helper work without a card
-    or ``nvcc`` (nothing is compiled at import).
+    or ``nvcc`` (nothing is compiled at import);
+  * ``chip_smoke.py --paths`` selects paths in the full run's order, and
+    without a card the script returns non-zero with no result line.
 """
 import ast
 import dataclasses
+import os
 import pathlib
+import subprocess
+import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -78,7 +84,8 @@ def test_slice_modules_are_scanned():
                 "parallel/pipeline.py", "models/moe_sharded.py",
                 "launch/mesh.py", "launch/specs.py",
                 "roofline/op_cost.py", "roofline/fused_model.py",
-                "launch/dryrun.py", "launch/hillclimb.py"):
+                "launch/dryrun.py", "launch/hillclimb.py",
+                "core/precision_policy.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -244,7 +251,7 @@ def test_dse_entry_points_raise_without_cuda(monkeypatch):
     simulator) runs on the card unless the caller passes a device; its
     numpy routes need none."""
     from repro_torch.core import (autotune, chip, dse, energy_model,
-                                  latency_sim, softfloat)
+                                  latency_sim, precision_policy, softfloat)
     from repro_torch.core.fpu_arch import FABRICATED
     from repro_torch.numerics import emulated_dot
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -278,9 +285,16 @@ def test_dse_entry_points_raise_without_cuda(monkeypatch):
              lambda: softfloat.sf_fma(1.0, 2.0, 3.0, tf.BF16),
              lambda: softfloat.dp_fma(np.ones(3), np.ones(3), np.ones(3)),
              lambda: emulated_dot(np.ones((2, 4)), np.ones((2, 4)),
-                                  fmt="bf16")]
+                                  fmt="bf16"),
+             lambda: precision_policy.select_fpu("throughput"),
+             lambda: precision_policy.policy_for_shape("decode"),
+             lambda: precision_policy.step_energy_telemetry(
+                 units[0], achieved_flops=1e9, step_time_s=1.0,
+                 peak_flops=1e12)]
     for call in calls:
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
             call()
     # the numpy routes and the CPU on request
     out = energy_model.predict_batch(units, params, [0.8], [0.0],
@@ -363,3 +377,47 @@ def test_config_data_matches_jax(arch):
     assert dataclasses.asdict(got.reduced()) == \
         dataclasses.asdict(want.reduced())
     assert tbase.cells(arch) == jbase.cells(arch)
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_selects_paths():
+    """``--paths`` names paths in the full run's order; no argument is the
+    full run; anything else is refused."""
+    cs = _chip_smoke()
+    assert cs.selected_paths([]) == cs.PATHS
+    assert cs.PATHS[-2:] == ("dense", "dse") and len(cs.PATHS) == 9
+    assert cs.selected_paths(["--paths", "dense"]) == ("dense",)
+    assert cs.selected_paths(["--paths", "dse,dense,tinyllama"]) == (
+        "tinyllama", "dense", "dse")
+    for bad in (["--paths"], ["--paths", "dense,nope"], ["--paths", ""],
+                ["dense"], ["--paths", "dense", "ssm"]):
+        assert cs.selected_paths(bad) is None, bad
+
+
+@pytest.mark.parametrize("paths", ["full", "dense"])
+def test_chip_smoke_fails_without_a_card(paths, monkeypatch, capsys):
+    """Without CUDA the script's full run, and a run of one path, return
+    non-zero and print no result line."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cs.main(cs.PATHS if paths == "full" else ("dense",)) != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_chip_smoke_refuses_an_unknown_path(tmp_path):
+    """``--paths`` with a name outside PATHS exits 2 before any work (the
+    card, where there is one, hidden from the child), no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--paths", "dense,nope"], capture_output=True,
+                          text=True, cwd=tmp_path, env=env, timeout=300)
+    assert proc.returncode == 2 and "usage" in proc.stderr
+    assert '"ok"' not in proc.stdout

@@ -254,6 +254,45 @@ def test_dense_configs_match_jax(arch, spec):
         nxt = np.array(jnp.argmax(jlog[:, -1], -1))[:, None]
 
 
+#: RoPE at the full configs' head dim: positions 0-32767 of random f32
+#: heads.  The angles and the frequencies are bitwise on both sides; only
+#: the f32 ``sin``/``cos`` differ (by an ulp of 1 where they differ), so an
+#: output lies within 2**-21 * max |x| of JAX's: two such ulps in each of
+#: its two products, and the rounding of the sum
+ROPE_POSITIONS = 32768
+ROPE_ATOL = 2.0 ** -21
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "starcoder2-7b"])
+def test_rope_at_full_head_dim_matches_jax(arch):
+    """``apply_rope`` with the full config's head dim (128), style (half
+    for chatglm3-6b, full for starcoder2-7b) and ``rope_theta``, against
+    the JAX package's; the half style's unrotated dims bitwise, position 0
+    (no rotation) bitwise."""
+    from repro.models.layers import apply_rope as japply_rope
+    from repro_torch.models.layers import apply_rope
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    assert (cfg.head_dim, cfg.rope_style, cfg.rope_theta) == \
+        (jcfg.head_dim, jcfg.rope_style, jcfg.rope_theta)
+    assert cfg.head_dim == 128
+    assert cfg.rope_style == {"chatglm3-6b": "half",
+                              "starcoder2-7b": "full"}[arch]
+    x = np.random.default_rng(9).standard_normal(
+        (1, ROPE_POSITIONS, 2, cfg.head_dim)).astype(np.float32)
+    pos = np.arange(ROPE_POSITIONS)[None]
+    want = np.asarray(japply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                  jcfg.rope_theta, jcfg.rope_style))
+    got = apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                     cfg.rope_theta, cfg.rope_style).numpy()
+    assert got.shape == want.shape == x.shape
+    assert np.abs(got - want).max() <= ROPE_ATOL * np.abs(x).max()
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    if cfg.rope_style == "half":
+        half = cfg.head_dim // 2
+        np.testing.assert_array_equal(got[..., half:], x[..., half:])
+        np.testing.assert_array_equal(want[..., half:], x[..., half:])
+
+
 ALL_ARCHS = ["chatglm3-6b", "deepseek-67b", "deepseek-moe-16b",
              "falcon-mamba-7b", "internvl2-1b", "mixtral-8x7b",
              "musicgen-large", "starcoder2-7b", "tinyllama-1.1b",

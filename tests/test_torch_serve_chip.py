@@ -1,6 +1,7 @@
 """The port's ``BatchedServer(chip_policy=...)`` against the JAX package's:
 fleet routing by precision, deadline class, accuracy class and health,
-per-request and chip-level energy, fleet reports and reject codes.
+per-request and chip-level energy, fleet reports and reject codes, and
+``flops_per_token=`` on both servers.
 
 A reduced tinyllama in float32 runs on weights exported from the JAX
 model (``models/convert.params_from_jax``).  The JAX package's chip module
@@ -53,6 +54,8 @@ TRAFFIC = [(5, 4, "sp", None, None), (9, 6, "dp", 1e9, None),
            (7, 3, "dp", None, None), (17, 6, None, 1e9, None),
            (4, 2, "sp", None, 3e-8), (10, 5, "dp", 1e9, 1e-2),
            (6, 4, None, None, None), (8, 3, "sp", 1e9, None)]
+# the servers' flops_per_token= (None: 2 x active params; 0: nothing)
+FLOPS_PER_TOKEN = (None, 0, 1e9)
 BAD = [(4, 2, "fp16", None, None, "unknown_precision"),
        (4, 2, None, None, 0.0, "bad_accuracy_slo"),
        (4, 2, "sp", None, 1e-30, "accuracy_slo_unmeetable")]
@@ -140,13 +143,13 @@ def drive(ns, chunk):
     return out
 
 
-def drive_sp(ns, server_cls):
+def drive_sp(ns, server_cls, **kw):
     """An sp die, no deadline routing: the bulk engine against the
-    per-token reference."""
+    per-token reference (``kw``: more constructor arguments)."""
     eng, chip, params = ns["engine"], ns["chip"], ns["P"]
     pol = chip.ChipPolicy(chip.fabricated_chip("sp", params), params)
     server = server_cls(ns["model"], ns["params"], slots=2, max_len=32,
-                        chip_policy=pol)
+                        chip_policy=pol, **kw)
     ps = prompts(256, (4, 9, 6, 12), ns["dtype"], seed=14)
     reqs = [eng.Request(uid=i, prompt=p, max_new_tokens=6)
             for i, p in enumerate(ps)]
@@ -154,7 +157,8 @@ def drive_sp(ns, server_cls):
         server.submit(r)
     server.run(max_steps=100)
     return dict(reqs=[req_row(r) for r in reqs],
-                energy_report=server.energy_report())
+                energy_report=server.energy_report(),
+                flops_per_token=server.flops_per_token)
 
 
 def drive_drain(ns):
@@ -243,6 +247,10 @@ for chunk in (None, 4):
     out["drive", chunk] = drive(ns, chunk)
 out["sp_bulk"] = drive_sp(ns, engine.BatchedServer)
 out["sp_ref"] = drive_sp(ns, engine.ReferenceServer)
+for fpt in FLOPS_PER_TOKEN:
+    for cls in (engine.BatchedServer, engine.ReferenceServer):
+        out["fpt", cls.__name__, fpt] = drive_sp(ns, cls,
+                                                 flops_per_token=fpt)
 out["drain"] = drive_drain(ns)
 with open(sys.argv[2], "wb") as fh:
     pickle.dump(out, fh)
@@ -416,3 +424,22 @@ def test_drain_park_and_take_parked_match_jax(ref, ns):
     assert [p[2] for p in got["parked"]] == [1, 1]
     assert all(p[1] for p in got["parked"])  # tokens committed before
     assert [r["output"] for r in got["resumed"]] == got["uninterrupted"]
+
+
+@pytest.mark.parametrize("fpt", FLOPS_PER_TOKEN, ids=str)
+@pytest.mark.parametrize("server_cls", ["BatchedServer", "ReferenceServer"])
+def test_flops_per_token_matches_jax(ref, ns, server_cls, fpt):
+    """``flops_per_token=`` of both servers as the JAX engine takes it:
+    ``None`` charges 2 x active params a token, 0 nothing, 1e9 that many;
+    each request's energy and ``energy_report`` at rel 1e-9, the same
+    tokens and routes."""
+    got = drive_sp(ns, getattr(engine, server_cls), flops_per_token=fpt)
+    want = ref["fpt", server_cls, fpt]
+    assert got["flops_per_token"] == want["flops_per_token"]
+    assert got["flops_per_token"] == {
+        None: 2.0 * ns["model"].cfg.active_param_count(), 0: 0.0,
+        1e9: 1e9}[fpt]
+    _same_reqs(got["reqs"], want["reqs"])
+    _same_report(got["energy_report"], want["energy_report"])
+    if not fpt and fpt is not None:
+        assert got["energy_report"]["total_j"] == 0.0

@@ -2640,8 +2640,6 @@ def train_full_width(model, dev, smi):
         profiled_step=profiled,
         profiled_step_wall_ms=walls[profiled] * 1e3,
         profiled_step_device_ms=device_ms or "not measured",
-        idle_share=(1 - device_ms / (wall * 1e3)) if device_ms
-        else "not measured",
         top_kernels_ms=[[k[:80], v] for k, v in top] if device_ms else [],
         tokens_per_s=tokens / wall,
         model_flops_per_s=8 * n_params * tokens / wall,
@@ -3047,8 +3045,6 @@ def dist_train_full_width(model, dev, smi, ctx):
                 first_step_wall_ms=walls[0] * 1e3,
                 step_wall_ms=walls[1] * 1e3,
                 step_device_ms=device_ms or "not measured",
-                idle_share=(1 - device_ms / (walls[1] * 1e3)) if device_ms
-                else "not measured",
                 top_kernels_ms=[[k[:80], v] for k, v in sorted(
                     kernels.items(), key=lambda kv: -kv[1])[:6]],
                 peak_bytes=torch.cuda.max_memory_allocated() - base,
@@ -4167,8 +4163,6 @@ def profile_decode(model, params, rng):
         result[label] = dict(
             wall_ms=wall * 1e3,
             device_ms=total_us / 1e3 if total_us else "not measured",
-            idle_share=1 - total_us / 1e3 / (wall * 1e3) if total_us
-            else "not measured",
             top_kernels_ms=[[k[:80], v / 1e3] for k, v in top])
     emit({"phase": "profile", "arch": cfg.name,
           "what": "one decode_step, batch 4, after a 64-token prefill",

@@ -47,6 +47,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.ref import STYLES, TILE, accumulate
+from repro_torch.telemetry.tracer import scope
 
 _STYLE_CODE = {"fused": 0, "cascade": 1, "cascade_fwd": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -295,19 +296,30 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
     CPU tensors take ``fused_qmm_ref`` at the kernel's 128 x 128 tiling; a
     CUDA tensor launches the kernel on ``plan_qmm``'s schedule (f32 or bf16
     operands, b through its strides) and counts the launch in
-    ``fused_qmm.launches``."""
+    ``fused_qmm.launches``.  Each call runs in the phase scope ``k1``
+    (``telemetry.scope``), timed on the device by CUDA events, with the
+    shape, the schedule (``ref`` on the CPU), the format and the style."""
     _build.refuse_dtensor("fused_qmm", a, b)
     batched = a.dim() == 3
     a3 = a if batched else a[None]
     if a3.dim() != 3 or b.dim() != 2 or a3.shape[2] != b.shape[0]:
         raise ValueError(f"bad qmm shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    if a.device.type == "cpu":
-        return fused_qmm_ref(a, b, fmt=fmt, style=style, out_fmt=out_fmt,
-                             scaled=scaled, bm=TILE, bn=TILE)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_qmm runs on cpu or cuda, got {a.device}")
-    _build.refuse_grad("fused_qmm", a, b)
-    out = launch(a3, b, fmt, style, out_fmt, scaled)
+    with scope("k1", device=a.device) as sc:
+        if sc.on:
+            nb, m, k = a3.shape
+            n = b.shape[1]
+            schedule = plan_qmm(nb, m, n, k, sm_count(a.device)).schedule \
+                if a.device.type == "cuda" else "ref"
+            sc.set(nb=nb, m=m, k=k, n=n, schedule=schedule, fmt=fmt.name,
+                   style=style)
+        if a.device.type == "cpu":
+            return fused_qmm_ref(a, b, fmt=fmt, style=style,
+                                 out_fmt=out_fmt, scaled=scaled, bm=TILE,
+                                 bn=TILE)
+        _build.refuse_grad("fused_qmm", a, b)
+        out = launch(a3, b, fmt, style, out_fmt, scaled)
     fused_qmm.launches += 1
     return out if batched else out[0]
 

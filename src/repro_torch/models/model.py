@@ -44,6 +44,7 @@ from repro_torch.models.numerics import matmul
 from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import (constrain_layer_params, shard,
                                            tensor_size)
+from repro_torch.telemetry.tracer import scope
 from repro_torch.train import tree as tree_util
 
 _ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
@@ -59,6 +60,15 @@ def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if dtype == torch.float8_e4m3fn:
         x = torch.where(x.abs() > 464, x.new_tensor(float("nan")), x)
     return x.to(dtype)
+
+
+def _positions(tokens, prefix_embeds, frame_embeds) -> int:
+    """The positions of a forward's batch: B x (prefix + sequence)."""
+    x = frame_embeds if frame_embeds is not None else tokens
+    n = x.shape[0] * x.shape[1]
+    if prefix_embeds is not None:
+        n += prefix_embeds.shape[0] * prefix_embeds.shape[1]
+    return n
 
 
 def _pad_vocab(v: int, multiple: int = 256) -> int:
@@ -860,8 +870,12 @@ class LM:
         none, nor do the hybrid's Mamba-2 blocks.
 
         Under a mesh (``parallel.sharding.use_mesh``) the parameters are
-        DTensors and so are the results."""
-        with sh.mesh_region():
+        DTensors and so are the results.  Runs in the phase scope
+        ``model.apply`` (``tokens``: the positions of the batch)."""
+        with scope("model.apply") as sc, sh.mesh_region():
+            if sc.on:
+                sc.set(tokens=_positions(tokens, prefix_embeds,
+                                         frame_embeds))
             return self._apply(params, tokens, prefix_embeds, frame_embeds,
                                policy, collect_kv, collect_states,
                                triangle_skip, logits_last_only, last_index,
@@ -1199,12 +1213,16 @@ class LM:
         and hybrid families' (conv, h).  Right-padding is exact for causal
         attention: a pad never enters a valid position's context.  SSM
         state carries run through pads, so those families must be called
-        with exact lengths (all ``true_lens == Lb``)."""
-        true_lens = torch.as_tensor(true_lens, dtype=torch.int64,
-                                    device=self.device)
-        logits, kv, states = self._collect(params, tokens, policy,
-                                           last_index=true_lens - 1)
-        return logits[:, 0], kv, states
+        with exact lengths (all ``true_lens == Lb``).  Runs in the phase
+        scope ``model.prefill_batched`` (``tokens``: M x Lb)."""
+        with scope("model.prefill_batched") as sc:
+            if sc.on:
+                sc.set(tokens=tokens.numel())
+            true_lens = torch.as_tensor(true_lens, dtype=torch.int64,
+                                        device=self.device)
+            logits, kv, states = self._collect(params, tokens, policy,
+                                               last_index=true_lens - 1)
+            return logits[:, 0], kv, states
 
     def prefill_chunk(self, params, cache: DecodeCache, tokens, offsets,
                       chunk_lens, slot_ids, *, policy=None):
@@ -1342,7 +1360,17 @@ class LM:
         masked by length), length, token and budget.  A lane
         deactivates when its budget hits zero or, with ``stop_tokens``,
         when it samples a stop token (which is still emitted).  Returns
-        ``(cache, tok, active, budget, toks (n, B), emitted (n, B))``."""
+        ``(cache, tok, active, budget, toks (n, B), emitted (n, B))``.
+        Runs in the phase scope ``model.decode_scan`` (``tokens``: B x
+        n_steps, the lanes' positions stepped, active or not)."""
+        with scope("model.decode_scan") as sc:
+            if sc.on:
+                sc.set(tokens=tok.shape[0] * n_steps)
+            return self._decode_scan(params, cache, tok, active, budget,
+                                     n_steps, pad_id, policy, stop_tokens)
+
+    def _decode_scan(self, params, cache, tok, active, budget, n_steps,
+                     pad_id, policy, stop_tokens):
         stops = torch.tensor([int(s) for s in stop_tokens],
                              dtype=torch.int64, device=self.device)
         toks, emitted = [], []

@@ -39,6 +39,13 @@ recycled.  Structure, as in the JAX engine:
     boundary on the fleet's unit (decoded tokens) and per admission on the
     prefill unit (the prompt's forward pass, including the logits that give
     the first token); ``energy_report()`` aggregates chip-level.
+  * **Phase scopes** (``telemetry.scope``): ``serve.step`` around a step,
+    ``serve.admit`` around its admission, ``serve.prefill`` per admitted
+    batch or chunk group (with its real and padded tokens and each new
+    request's wait since submission), ``serve.cache_write`` around the
+    K/V scatter, ``serve.decode`` from the dispatch through the token
+    fetch and ``serve.commit`` around the commit loop; recorded into the
+    engine's tracer, or while a ``torch.profiler`` session records.
   * **Drain and re-admission** — ``drain_fleet`` takes a fleet out of
     service and re-admits its requests as *continuations* on surviving
     fleets (``requeue``): the new fleet re-prefills the prompt and replays
@@ -66,7 +73,7 @@ import torch
 
 from repro_torch.faults import UnitFault
 from repro_torch.models import LM, DecodeCache
-from repro_torch.telemetry.tracer import NULL_TRACER
+from repro_torch.telemetry.tracer import NULL_TRACER, scope
 from repro_torch.telemetry.tracer import Event as TraceEvent
 
 
@@ -717,9 +724,11 @@ class BatchedServer:
         self._budget[idx] = b
         self._active_mask[idx] = b > 0
 
-    def _admit(self, now: float):
-        """Per in-service fleet: seat its queue in its own slots."""
+    def _admit(self, now: float) -> int:
+        """Per in-service fleet: seat its queue in its own slots.  Returns
+        the number of batches prefilled."""
         self._unpark()
+        batches = 0
         for fleet, slot_ids in self._fleets.items():
             if not self._fleet_in_service(fleet):
                 continue
@@ -747,6 +756,8 @@ class BatchedServer:
                 if not batch:
                     break
                 self._admit_batch(batch, free[:len(batch)], bucket)
+                batches += 1
+        return batches
 
     def _admit_batch(self, reqs: List[Request], slot_ids: List[int],
                      bucket: int):
@@ -756,33 +767,27 @@ class BatchedServer:
         for j, req in enumerate(reqs):
             tokens[j, :len(req.prompt)] = np.asarray(req.prompt)
         budgets = [self._budget_for(r) for r in reqs]
-        last_logits, kv, states = self.model.prefill_batched(
-            self.params, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(true_lens).to(dev))
-        first = torch.argmax(last_logits, dim=-1)
-        ids = torch.as_tensor(slot_ids, device=dev)
-        data = self.cache.data
-        if kv is not None:
-            smax = data["k"].shape[2]
-            if bucket <= smax:
-                data["k"][:, ids, :bucket] = kv[0]
-                data["v"][:, ids, :bucket] = kv[1]
-            else:  # only a ring is narrower than its bucket: keep the
-                # window tail, ring-aligned so position p sits at slot
-                # p % smax; a shorter prompt's clipped slots stay masked
-                # until decode overwrites them
-                j = torch.arange(smax, device=dev)
-                base = torch.from_numpy(true_lens).to(dev)[:, None] - smax
-                pos = (base + (j[None, :] - base) % smax).clamp(0, bucket - 1)
-                idx = pos[None, :, :, None, None]
-                data["k"][:, ids] = torch.take_along_dim(kv[0], idx, dim=2)
-                data["v"][:, ids] = torch.take_along_dim(kv[1], idx, dim=2)
-        if states is not None:
-            data["conv"][:, ids] = states[0]
-            data["h"][:, ids] = states[1]
-        self.cache.length[ids] = torch.from_numpy(true_lens).to(dev)
-        self._arm(slot_ids, first, budgets)
-        first = first.tolist()  # one host sync per admitted batch
+        with scope("serve.prefill", self.tracer, dev, bucket=bucket,
+                   rows=len(reqs)) as sc:
+            if sc.on:
+                self._prefill_attrs(sc, reqs, [0] * len(reqs),
+                                    int(true_lens.sum()), bucket)
+            last_logits, kv, states = self.model.prefill_batched(
+                self.params, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(true_lens).to(dev))
+            first = torch.argmax(last_logits, dim=-1)
+            ids = torch.as_tensor(slot_ids, device=dev)
+            data = self.cache.data
+            with scope("serve.cache_write", self.tracer, rows=len(reqs),
+                       bucket=bucket):
+                if kv is not None:
+                    self._write_kv(data, ids, kv, true_lens, bucket)
+                if states is not None:
+                    data["conv"][:, ids] = states[0]
+                    data["h"][:, ids] = states[1]
+            self.cache.length[ids] = torch.from_numpy(true_lens).to(dev)
+            self._arm(slot_ids, first, budgets)
+            first = first.tolist()  # one host sync per admitted batch
         self.host_syncs += 1
         now = self._clock()
         dead = []
@@ -810,6 +815,36 @@ class BatchedServer:
                 self._active[slot] = req
                 self._slot_quota[slot] = 1 + budget
         self._deactivate(dead)
+
+    def _write_kv(self, data, ids, kv, true_lens: np.ndarray,
+                  bucket: int) -> None:
+        """Scatter a batch's prefill K/V into its cache lanes."""
+        smax = data["k"].shape[2]
+        if bucket <= smax:
+            data["k"][:, ids, :bucket] = kv[0]
+            data["v"][:, ids, :bucket] = kv[1]
+            return
+        # only a ring is narrower than its bucket: keep the window tail,
+        # ring-aligned so position p sits at slot p % smax; a shorter
+        # prompt's clipped slots stay masked until decode overwrites them
+        dev = data["k"].device
+        j = torch.arange(smax, device=dev)
+        base = torch.from_numpy(true_lens).to(dev)[:, None] - smax
+        pos = (base + (j[None, :] - base) % smax).clamp(0, bucket - 1)
+        idx = pos[None, :, :, None, None]
+        data["k"][:, ids] = torch.take_along_dim(kv[0], idx, dim=2)
+        data["v"][:, ids] = torch.take_along_dim(kv[1], idx, dim=2)
+
+    def _prefill_attrs(self, sc, reqs: List[Request], offsets: List[int],
+                       real: int, width: int) -> None:
+        """A prefill scope's token counts (``padded_tokens`` = rows x
+        width - real) and ``waited_s``: for each row that starts its
+        prompt and has no first token yet, the engine clock's time since
+        it was submitted."""
+        now = self._clock()
+        sc.set(real_tokens=real, padded_tokens=len(reqs) * width - real,
+               waited_s=[now - r.submitted_s for r, off in zip(reqs, offsets)
+                         if off == 0 and r.first_token_s is None])
 
     # --------------------------------------- continuous batching scheduler
     def _seat(self, now: float):
@@ -839,13 +874,13 @@ class BatchedServer:
                     self.tracer.event(req.uid, TraceEvent.SEAT, now,
                                       slot=slot)
 
-    def _advance_prefills(self, now: float):
+    def _advance_prefills(self, now: float) -> int:
         """Advance every mid-prefill lane by one chunk, grouped by padded
         chunk width (the final partial chunk pads up to a pow2 bucket; ssm
         and hybrid chunks stay exact length, since the conv carry
         integrates raw inputs).  A lane whose chunk completes its prompt is
         armed for decode and its first token committed (one host sync, only
-        on such steps)."""
+        on such steps).  Returns the number of chunk groups."""
         C = self.prefill_chunk
         lanes = sorted(self._prefill_pos)
 
@@ -877,16 +912,22 @@ class BatchedServer:
                 clens.append(clen)
                 if off + clen == len(p):
                     finals.append(j)
-            last_logits, self.cache = self.model.prefill_chunk(
-                self.params, self.cache, torch.from_numpy(tokens).to(dev),
-                offs, clens, slots)
-            first = None
+            with scope("serve.prefill", self.tracer, dev, bucket=cb,
+                       rows=len(slots)) as sc:
+                if sc.on:
+                    self._prefill_attrs(sc, [self._active[s] for s in slots],
+                                        offs, sum(clens), cb)
+                last_logits, self.cache = self.model.prefill_chunk(
+                    self.params, self.cache,
+                    torch.from_numpy(tokens).to(dev), offs, clens, slots)
+                first = None
+                if finals:
+                    fin_slots = [slots[j] for j in finals]
+                    first = torch.argmax(last_logits[finals], dim=-1)
+                    self._arm(fin_slots, first,
+                              [self._slot_pf_budget[s] for s in fin_slots])
+                    first = dict(zip(finals, first.tolist()))  # host sync
             if finals:
-                fin_slots = [slots[j] for j in finals]
-                first = torch.argmax(last_logits[finals], dim=-1)
-                self._arm(fin_slots, first,
-                          [self._slot_pf_budget[s] for s in fin_slots])
-                first = dict(zip(finals, first.tolist()))  # host sync
                 self.host_syncs += 1
             dead = []
             for j, s in enumerate(slots):
@@ -911,6 +952,7 @@ class BatchedServer:
                     self._active[s] = None
                     dead.append(s)
             self._deactivate(dead)
+        return len(groups)
 
     def _filter_dispatch(self, active_slots: List[int], toks_np: np.ndarray,
                          emitted_np: np.ndarray, now: float,
@@ -951,35 +993,50 @@ class BatchedServer:
         advance), then one fused decode dispatch over the decode-ready
         slots (up to ``max_tokens`` tokens each, default 1).  Returns the
         number of seated slots."""
-        now = self._clock()
-        self._expire_active(now)
-        decode_ready = sum(1 for s, r in enumerate(self._active)
-                           if r is not None and s not in self._prefill_pos)
-        pf0 = self.prefill_tokens
-        if self.prefill_chunk is not None:
-            self._seat(now)
-            self._advance_prefills(now)
-        else:
-            self._admit(now)
-        pf_delta = self.prefill_tokens - pf0
-        contended = decode_ready > 0 and pf_delta > 0
-        if contended:
-            self._stall_prefill_tokens += pf_delta
-        n_seated = sum(1 for r in self._active if r is not None)
-        active_slots = [s for s, r in enumerate(self._active)
-                        if r is not None and s not in self._prefill_pos]
-        if self.tracer.enabled:
-            self._sample_metrics(now, n_seated, len(active_slots))
-        if not active_slots:
+        with scope("serve.step", self.tracer) as sc:
+            now = self._clock()
+            self._expire_active(now)
+            decode_ready = sum(
+                1 for s, r in enumerate(self._active)
+                if r is not None and s not in self._prefill_pos)
+            pf0 = self.prefill_tokens
+            with scope("serve.admit", self.tracer) as adm:
+                if self.prefill_chunk is not None:
+                    self._seat(now)
+                    batches = self._advance_prefills(now)
+                else:
+                    batches = self._admit(now)
+                adm.set(batches=batches)
+            pf_delta = self.prefill_tokens - pf0
+            contended = decode_ready > 0 and pf_delta > 0
+            if contended:
+                self._stall_prefill_tokens += pf_delta
+            n_seated = sum(1 for r in self._active if r is not None)
+            active_slots = [s for s, r in enumerate(self._active)
+                            if r is not None and s not in self._prefill_pos]
+            sc.set(seated=n_seated, decode_lanes=len(active_slots))
+            if self.tracer.enabled:
+                self._sample_metrics(now, n_seated, len(active_slots))
+            if active_slots:
+                n = 1 if max_tokens is None else max(1, int(max_tokens))
+                self._dispatch(active_slots, n, contended)
             return n_seated
-        n = 1 if max_tokens is None else max(1, int(max_tokens))
+
+    def _dispatch(self, active_slots: List[int], n: int,
+                  contended: bool) -> None:
+        """One fused decode dispatch of ``n`` steps over ``active_slots``:
+        the device scan, the fetch, the dispatch filter and the commit."""
         t_dispatch = time.perf_counter()
-        (self.cache, self._next_tok, self._active_mask, self._budget, toks,
-         emitted) = self.model.decode_scan(
-            self.params, self.cache, self._next_tok, self._active_mask,
-            self._budget, n, pad_id=self.pad_id, stop_tokens=self.stop_tokens)
-        # the host sync: one fetch per N-token dispatch
-        fetched = torch.stack([toks, emitted.to(toks.dtype)]).cpu().numpy()
+        with scope("serve.decode", self.tracer, self.model.device,
+                   lanes=len(active_slots), steps=n):
+            (self.cache, self._next_tok, self._active_mask, self._budget,
+             toks, emitted) = self.model.decode_scan(
+                self.params, self.cache, self._next_tok, self._active_mask,
+                self._budget, n, pad_id=self.pad_id,
+                stop_tokens=self.stop_tokens)
+            # the host sync: one fetch per N-token dispatch
+            fetched = torch.stack([toks, emitted.to(toks.dtype)]) \
+                .cpu().numpy()
         toks_np, emitted_np = fetched[0], fetched[1].astype(bool)
         self.dispatches += 1
         self.host_syncs += 1
@@ -987,6 +1044,17 @@ class BatchedServer:
         toks_np, emitted_np = self._filter_dispatch(
             active_slots, toks_np, emitted_np, now,
             time.perf_counter() - t_dispatch)
+        with scope("serve.commit", self.tracer) as cm:
+            decode_emitted = self._commit(active_slots, toks_np, emitted_np,
+                                          n, now)
+            cm.set(tokens=decode_emitted)
+        if contended:
+            self._contended_decode_tokens += decode_emitted
+
+    def _commit(self, active_slots: List[int], toks_np: np.ndarray,
+                emitted_np: np.ndarray, n: int, now: float) -> int:
+        """Commit a dispatch's fetched tokens to their requests, finish and
+        release lanes; returns the tokens emitted."""
         released = []
         decode_emitted = 0
         for slot in active_slots:
@@ -1024,9 +1092,7 @@ class BatchedServer:
             if req.done:
                 self._active[slot] = None
         self._deactivate(released)
-        if contended:
-            self._contended_decode_tokens += decode_emitted
-        return n_seated
+        return decode_emitted
 
     def run(self, max_steps: int = 10_000,
             dispatch_tokens: Optional[int] = None) -> List[Request]:

@@ -9,20 +9,24 @@ Two formats, both views of the same ``Tracer`` state:
     per site), request-scoped events instant ``"i"`` markers on the same
     track, system events (faults, probes) a ``system`` track, and metric
     timelines ``"C"`` counter tracks.  Timestamps are the tracer's clock
-    seconds in microseconds (the format's unit).
+    seconds in microseconds (the format's unit).  Phase scopes, where the
+    tracer has any, are ``"X"`` slices on a ``scopes`` process of their
+    own, at their ``perf_counter`` microseconds.
 
   * **JSONL** (``write_jsonl``/``load_jsonl``): one self-describing JSON
     object per line (``{"k": "span" | "metric" | "sys", ...}``);
     ``load_jsonl`` rebuilds a ``Tracer`` with its spans, metric timelines
     and system events.  The rows are the JAX package's, field for field,
-    so a log written by either package loads in the other.
+    so a log written by either package loads in the other.  A tracer with
+    phase scopes adds one ``"clock"`` row (its ``clock_anchor``) and a
+    ``"scope"`` row per scope, which the JAX package's loader skips.
 """
 from __future__ import annotations
 
 import json
 from typing import List, Union
 
-from repro_torch.telemetry.tracer import Span, Tracer
+from repro_torch.telemetry.tracer import Scope, Span, Tracer
 
 _US = 1e6  # tracer clock is in seconds; chrome traces want microseconds
 
@@ -66,7 +70,22 @@ def to_chrome_trace(tracer: Tracer) -> dict:
                                pid=pid_of.get(site, 1) if sites else 1,
                                tid=0, ts=t * _US,
                                args={name: value}))
+    if tracer.scopes:
+        events.extend(_scope_events(tracer, len(pid_of) + 1))
     return dict(traceEvents=events, displayTimeUnit="ms")
+
+
+def _scope_events(tracer: Tracer, pid: int) -> List[dict]:
+    tracer.resolve_device_times()
+    out = [dict(ph="M", name="process_name", pid=pid, tid=0,
+                args=dict(name="scopes"))]
+    for sc in tracer.scopes:
+        end = sc.end_ns if sc.end_ns is not None else sc.start_ns
+        out.append(dict(ph="X", name=sc.name, cat="scope", pid=pid, tid=0,
+                        ts=sc.start_ns / 1e3,
+                        dur=max(end - sc.start_ns, 0) / 1e3,
+                        args=dict(device_s=sc.device_s, **sc.attrs)))
+    return out
 
 
 def write_chrome_trace(tracer: Tracer, path: str) -> str:
@@ -99,6 +118,16 @@ def write_jsonl(tracer: Tracer, path: str) -> str:
         for etype, t, site, attrs in tracer.system_events:
             fh.write(json.dumps(dict(k="sys", type=etype, t=t, site=site,
                                      attrs=attrs)) + "\n")
+        if tracer.scopes:
+            tracer.resolve_device_times()
+            pc, epoch = tracer.clock_anchor
+            fh.write(json.dumps(dict(k="clock", perf_ns=pc,
+                                     epoch_ns=epoch)) + "\n")
+            for sc in tracer.scopes:
+                fh.write(json.dumps(dict(
+                    k="scope", id=sc.scope_id, parent=sc.parent_id,
+                    name=sc.name, t0_ns=sc.start_ns, t1_ns=sc.end_ns,
+                    dev_s=sc.device_s, attrs=sc.attrs)) + "\n")
     return path
 
 
@@ -135,6 +164,14 @@ def load_jsonl(path: str) -> Tracer:
         elif kind == "sys":
             tr.system_events.append((row["type"], row["t"], row["site"],
                                      row["attrs"]))
+        elif kind == "clock":
+            tr.clock_anchor = (row["perf_ns"], row["epoch_ns"])
+        elif kind == "scope":
+            tr.scopes.append(Scope(row["id"], row["name"], row["attrs"],
+                                   parent_id=row["parent"],
+                                   start_ns=row["t0_ns"],
+                                   end_ns=row["t1_ns"],
+                                   device_s=row["dev_s"]))
     tr._next_id = max_id + 1
     return tr
 

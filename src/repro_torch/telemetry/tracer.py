@@ -27,12 +27,28 @@ False, and every instrumentation site is guarded by ``if
 tracer.enabled:``, so a disabled tracer costs one attribute read per
 guarded block.
 
+Apart from that request-level data, a tracer keeps **phase scopes**
+(``Tracer.scope``): nested host intervals on ``time.perf_counter_ns``
+around the engine's phases, the model's entry points and each K1 launch,
+each with its attributes and, given a CUDA device, its device time between
+two timing events.  The module-level ``scope`` picks the tracer a site
+records into: the one passed in when it is enabled, else, while a
+``torch.profiler`` session records, the session's own tracer
+(``profiled_session``), else none.  While the profiler records, a scope
+also opens ``record_function("fpmax.<name>")``, so the same interval lies
+on the device trace, and the tracer's ``clock_anchor`` converts a scope's
+times to the profiler's clock (the epoch clock of ``time.time_ns``).
+
 The module imports nothing beyond the standard library, so every layer can
-depend on it without cycles; its JSONL logs load in either package.
+depend on it without cycles; its JSONL logs load in either package (the
+JAX package skips the scope rows).  Torch is imported only where a scope
+records.
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 
@@ -126,9 +142,116 @@ class NullTracer:
     def system_event(self, type, t, site="", **attrs):
         return None
 
+    def scope(self, name, device=None, **attrs):
+        return NULL_SCOPE
+
 
 #: the process-wide disabled tracer every engine defaults to
 NULL_TRACER = NullTracer()
+
+
+def _profiling() -> bool:
+    """True while a ``torch.profiler`` session records (the profiler's own
+    Python-side flag: no torch call, and False before torch is loaded)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+class _NullScope:
+    """The scope that records nothing: one shared instance."""
+
+    on = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+    def set(self, **attrs):
+        return None
+
+
+NULL_SCOPE = _NullScope()
+
+
+class Scope:
+    """One phase scope of a ``Tracer``: ``start_ns``/``end_ns`` on
+    ``time.perf_counter_ns``, ``parent_id`` the innermost scope of the same
+    tracer open at entry, ``device_s`` the time between its two CUDA
+    events (None without a CUDA device, or until
+    ``Tracer.resolve_device_times``).  Entered, it is its own handle:
+    ``on`` is True and ``set(**attrs)`` adds attributes."""
+
+    __slots__ = ("scope_id", "parent_id", "name", "start_ns", "end_ns",
+                 "attrs", "device_s", "_tracer", "_device", "_events",
+                 "_range")
+    on = True
+
+    def __init__(self, scope_id: int, name: str, attrs: dict,
+                 parent_id: Optional[int] = None, start_ns: int = 0,
+                 end_ns: Optional[int] = None,
+                 device_s: Optional[float] = None, tracer=None,
+                 device=None):
+        self.scope_id = scope_id
+        self.parent_id = parent_id
+        self.name = name
+        self.start_ns = start_ns
+        self.end_ns = end_ns
+        self.attrs = attrs
+        self.device_s = device_s
+        self._tracer = tracer
+        self._device = device
+        self._events = None
+        self._range = None
+
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+    @property
+    def host_s(self) -> Optional[float]:
+        return None if self.end_ns is None \
+            else (self.end_ns - self.start_ns) * 1e-9
+
+    def __enter__(self) -> "Scope":
+        tr = self._tracer
+        stack = tr._open_scopes
+        self.parent_id = stack[-1].scope_id if stack else None
+        stack.append(self)
+        if _profiling():
+            from torch.autograd.profiler import record_function
+            self._range = record_function("fpmax." + self.name)
+            self._range.__enter__()
+        dev = self._device
+        if dev is not None and getattr(dev, "type", None) == "cuda":
+            import torch
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            self._events = (start, end, torch.cuda.current_stream(dev))
+        self.start_ns = time.perf_counter_ns()
+        if self._events is not None:
+            self._events[0].record(self._events[2])
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._events is not None:
+            self._events[1].record(self._events[2])
+        self.end_ns = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        self._tracer._open_scopes.pop()
+        return None
+
+    def resolve(self) -> None:
+        """Read the device time from the two events, waiting for the end
+        event (never called inside the scope)."""
+        if self._events is None or self.end_ns is None:
+            return
+        start, end, _ = self._events
+        end.synchronize()
+        self.device_s = start.elapsed_time(end) * 1e-3
+        self._events = None
 
 
 class Tracer(NullTracer):
@@ -147,6 +270,11 @@ class Tracer(NullTracer):
         #: request span — (type, t_s, site, attrs)
         self.system_events: List[Tuple[str, float, str, dict]] = []
         self._next_id = 0
+        #: phase scopes in entry order, apart from the request spans
+        self.scopes: List[Scope] = []
+        #: (perf_counter_ns, time_ns) read back to back at the first scope
+        self.clock_anchor: Optional[Tuple[int, int]] = None
+        self._open_scopes: List[Scope] = []
 
     # ------------------------------------------------------------- spans
     def _new_span(self, uid: int, parent: Optional[int], name: str,
@@ -232,6 +360,32 @@ class Tracer(NullTracer):
                      **attrs) -> None:
         self.system_events.append((type, t, site, attrs))
 
+    # ------------------------------------------------------ phase scopes
+    def scope(self, name: str, device=None, **attrs) -> Scope:
+        """A context manager that records one phase scope (see ``Scope``);
+        with a CUDA ``device`` it records a timing event on the device's
+        current stream at entry and at exit."""
+        if self.clock_anchor is None:
+            self.clock_anchor = (time.perf_counter_ns(), time.time_ns())
+        sc = Scope(len(self.scopes), name, attrs, tracer=self,
+                   device=device)
+        self.scopes.append(sc)
+        return sc
+
+    def resolve_device_times(self) -> None:
+        """Fill every closed scope's ``device_s`` from its events, waiting
+        for the last of them: call it after the work, outside the scopes."""
+        for sc in self.scopes:
+            sc.resolve()
+
+    def to_epoch_ns(self, perf_ns: int) -> int:
+        """A ``perf_counter_ns`` reading on the profiler's (epoch) clock."""
+        pc, epoch = self.clock_anchor
+        return epoch + (perf_ns - pc)
+
+    def scopes_named(self, name: str) -> List[Scope]:
+        return [s for s in self.scopes if s.name == name]
+
     # ----------------------------------------------------- introspection
     def roots(self) -> Dict[int, Span]:
         return dict(self._root)
@@ -305,3 +459,54 @@ class Tracer(NullTracer):
                             f"uid {s.uid}: request closed but attempt "
                             f"{a.span_id} ({a.name}) still open")
         return problems
+
+
+class _ProfiledSession:
+    """The tracer of the latest ``torch.profiler`` session's scopes.  A new
+    one starts at the first scope of a session; a session has ended once
+    a scope site or ``profiled_session`` ran with the profiler off."""
+
+    def __init__(self):
+        self.tracer: Optional[Tracer] = None
+        self.live = False
+
+    def current(self) -> Tracer:
+        if not self.live:
+            self.tracer = Tracer()
+            self.live = True
+        return self.tracer
+
+
+_SESSION = _ProfiledSession()
+
+
+def scope(name: str, tracer=None, device=None, **attrs):
+    """The phase scope of one site: recorded into ``tracer`` when it is an
+    enabled ``Tracer`` (a tracer of another kind, such as the JAX
+    package's, which the engine also accepts, takes none), else, while a
+    ``torch.profiler`` session records, into that session's tracer, else
+    nowhere (the shared ``NULL_SCOPE``, whose ``on`` is False: a site
+    computes costly attributes only when ``on``).  With tracing off this
+    costs a few attribute reads and no torch call."""
+    if isinstance(tracer, Tracer) and tracer.enabled:
+        return tracer.scope(name, device, **attrs)
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and prof._is_profiler_enabled:
+        return _SESSION.current().scope(name, device, **attrs)
+    if _SESSION.live:
+        _SESSION.live = False
+    return NULL_SCOPE
+
+
+def profiled_session() -> Optional[Tracer]:
+    """The scopes the program recorded under the latest ``torch.profiler``
+    session, as a ``Tracer`` with its device times resolved, or None when
+    no scope ran under a profiler.  The operator's way to get the
+    program's phases of a profiled run: profile, then call this."""
+    tr = _SESSION.tracer
+    if tr is None:
+        return None
+    if not _profiling():
+        _SESSION.live = False
+    tr.resolve_device_times()
+    return tr

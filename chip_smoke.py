@@ -17,8 +17,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. the card, the torch/CUDA versions, and the build of every kernel from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel), with
      ``ptxas`` registers and spills of the K1/K3, K4 and K5/K6 kernels (a
-     spill in any of K4's six or K5/K6's four vector instantiations fails
-     the run);
+     spill in any of K1/K3's eight tiled, K4's six or K5/K6's four vector
+     instantiations fails the run);
   2. every kernel against its plain PyTorch version on the card: K2
      (quantize) bitwise on 4M elements with specials and f32 subnormals, K1
      (fused_qmm) and K3 (fma_emu) exactly equal to their plain versions on
@@ -564,10 +564,12 @@ def card_and_build():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": per_source,
           "libraries": [_build._lib_path(n).name for n in _build.SOURCES]})
-    # what ptxas -v reported for the K1/K3, K4 and K5/K6 kernels; a K4
-    # instantiation or a K5/K6 vector (lanes) instantiation that spills
-    # fails the run
-    no_spills = {"flash_attn": ("flash_kernel", 6, "K4",
+    # what ptxas -v reported for the K1/K3, K4 and K5/K6 kernels; a K1/K3
+    # tiled instantiation, a K4 instantiation or a K5/K6 vector (lanes)
+    # instantiation that spills fails the run
+    no_spills = {"qmm": ("qmm_tile_kernel", 8, "K1/K3",
+                         "BM 64/128 x f32/bf16 a x f32/bf16 b"),
+                 "flash_attn": ("flash_kernel", 6, "K4",
                                 "D 16/64/128 x f32/bf16"),
                  "ssm_scan": ("ssm_scan_lanes_kernel", 4, "K5/K6",
                               "N 8/16 x rounding off/on")}
@@ -1721,8 +1723,12 @@ def trace_full_width(model, params, tech, dev):
           and back.system_events == tracer.system_events,
           "the JSONL round trip differs from the tracer")
     slices = [e for e in chrome["traceEvents"] if e["ph"] == "X"]
-    check(len(slices) == len(tracer.spans), "Chrome trace: "
-          f"{len(slices)} slices for {len(tracer.spans)} spans")
+    span_slices = [e for e in slices if e.get("cat") != "scope"]
+    check(len(span_slices) == len(tracer.spans) and
+          len(slices) - len(span_slices) == len(tracer.scopes),
+          f"Chrome trace: {len(span_slices)} slices for "
+          f"{len(tracer.spans)} spans, {len(slices) - len(span_slices)} for "
+          f"{len(tracer.scopes)} scopes")
     # the measured phases tuned on the card and on the CPU
     phases = phases_from_trace(back, name=cfg.name)
     check([p.name for p in phases] == [f"{cfg.name}:prefill",

@@ -29,17 +29,30 @@
 // each weight once for a handful of rows and are bound by the bytes of b.
 // The products stay f32 FMAs on the CUDA cores (67 TFLOP/s peak) to keep an
 // IEEE f32 partial dot, so the prefill shapes stay well above that bound.
+// On the CUDA cores the tiled kernel is bound by FFMA issue and by the
+// registers that feed it: an 8 x 8 register tile makes 4 LDS.128 feed 64
+// FFMA (shared-memory bandwidth is not the limit: a warp's lanes read 64
+// and 128 contiguous bytes), but its 64 partial dots and 16 fragment
+// registers leave no room under the 128 registers a thread that two blocks
+// of 8 warps per SM allow for a second set of accumulators, so those live
+// in shared memory.  One block of 8 warps per SM with both sets in
+// registers (up to 255 a thread) measured slower: too few warps to hide the
+// slices' copies, rounding and barriers (PERF.md).
 //
 // Design: the host planner (kernels/fused.py::plan_qmm) picks one of three
 // schedules and its tile, and passes them in.
-//   whole       qmm_tile_kernel: one thread block per (batch, 64 x 128
-//               output tile) walks every k block in order and folds in
-//               registers.  256 threads, each with a 4 x 8 register tile
-//               read from shared memory as float4.  32-deep k slices are
-//               copied with cp.async into a ring of four raw slices and
-//               rounded once into one of two compute buffers; slice s + 1
-//               is rounded between the same two barriers as slice s is
-//               multiplied, and two thread blocks share an SM.
+//   whole       qmm_tile_kernel<BM>: one thread block per (batch, BM x 128
+//               output tile) walks every k block in order; BM is 128, or 64
+//               where a grid of 128-row tiles would leave the card part
+//               idle.  256 threads, each with a BM / 16 x 8 register tile
+//               of partial dots read from shared memory as float4 (a and b
+//               both k-major); each folds its partial dots into its own
+//               accumulators in shared memory at the end of each k block.
+//               k slices (8 deep at BM 128, 16 at 64) are copied with
+//               cp.async into a ring of three raw slices and rounded once
+//               into one of two f32 buffers; slice s + 1 is rounded between
+//               the same two barriers as slice s is multiplied, and two
+//               thread blocks share an SM.
 //   split_tile  the same kernel with one k block per thread block (grid z =
 //               k block x batch): prefill shapes whose tile grid would leave
 //               the card idle (small N).
@@ -72,14 +85,7 @@
 namespace {
 
 constexpr int kBK = 128;          // the k block: the styles round at its edges
-// the tiled kernel: its 64 x 128 output tile, 32-deep k slices, four raw
-// slices in flight, two thread blocks per SM (128 registers a thread; 110 KB
-// of shared memory each with bf16 operands)
-constexpr int kTileBM = 64;
-constexpr int kKC = 32;
-constexpr int kStages = 4;
-constexpr int kTileBlocksPerSM = 2;
-constexpr int kTileThreads = 256;  // 16 x 16
+constexpr int kTileThreads = 256;  // the tiled kernel's threads: 8 warps
 constexpr int kTileBN = 128;      // output tile width of the tiled kernel
 constexpr int kRowsThreads = 128;
 constexpr int kPadA = 4;          // row pad of the rows kernel's a (floats)
@@ -201,228 +207,360 @@ __device__ __forceinline__ float fold(float acc, float pt, const QmmArgs& p) {
 }
 
 // ---------------------------------------------------------------------------
-// whole and split_tile: register-tiled, 64 x 128 outputs per thread block
+// whole and split_tile: register-tiled, BM x 128 outputs per thread block
 // ---------------------------------------------------------------------------
-template <typename TA, typename TB>
-struct TileSmem {
-  static constexpr int VA = 16 / sizeof(TA), VB = 16 / sizeof(TB);
-  static constexpr int LDA = kKC + VA;    // raw a row: KC k + a 16-byte pad
-  static constexpr int LDB = kKC + VB;    // raw b column when k-contiguous
-  static constexpr int LDC = kKC + 4;     // rounded a row (floats)
-  static constexpr int RAW_B = kKC * kTileBN > kTileBN * LDB ? kKC * kTileBN
-                                                             : kTileBN * LDB;
-  static constexpr int RAW_A_BYTES = kTileBM * LDA * sizeof(TA);
-  static constexpr int RAW_B_BYTES = RAW_B * sizeof(TB);
-  static constexpr int RAW_BYTES = RAW_A_BYTES + RAW_B_BYTES;
-  static constexpr int CA_BYTES = kTileBM * LDC * sizeof(float);
-  static constexpr int CB_BYTES = kKC * kTileBN * sizeof(float);
-  static constexpr int C_BYTES = CA_BYTES + CB_BYTES;
-  // kStages raw slices in flight, two rounded slices
-  static constexpr int BYTES = kStages * RAW_BYTES + 2 * C_BYTES;
+// Each row tile's k slice, raw slices in its ring and thread blocks per SM
+// (128 registers a thread at most; shared memory for two blocks with bf16
+// operands: 92 KB at 128 rows, 83 KB at 64; scripts/qmm_sweep.py and
+// PERF.md hold the readings that chose them)
+template <int BM>
+struct TileCfg;
+template <>
+struct TileCfg<128> {
+  static constexpr int KC = 8, STAGES = 3, PER_SM = 2;
+};
+template <>
+struct TileCfg<64> {
+  static constexpr int KC = 16, STAGES = 3, PER_SM = 2;
 };
 
-// Thread (tx, ty) of 16 x 16 owns rows 4 ty + i (i < 4) and columns
-// 4 tx + j, 64 + 4 tx + j (j < 4) of the 64 x 128 tile.  Each k slice goes
-// global -> raw (cp.async, kStages in flight) -> rounded (ca[m][k] and
-// cb[k][n], two buffers) -> registers; the rounding of slice s + 1 and the
-// products of slice s run between the same two barriers, so one warp's
-// rounding overlaps another's products.
-template <typename TA, typename TB>
-__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSM)
+// bytes rounded up to an odd number of 16-byte units: rows that far apart
+// put 16-byte reads of 8 consecutive rows on 32 different banks
+__host__ __device__ constexpr int odd16(int bytes) {
+  return ((bytes + 15) / 16 | 1) * 16;
+}
+
+template <int BM, typename TA, typename TB>
+struct TileSmem {
+  static constexpr int KC = TileCfg<BM>::KC, STAGES = TileCfg<BM>::STAGES;
+  static constexpr int VA = 16 / sizeof(TA), VB = 16 / sizeof(TB);
+  static constexpr int LDA = odd16(KC * sizeof(TA)) / sizeof(TA);  // raw a row
+  static constexpr int LDB = odd16(KC * sizeof(TB)) / sizeof(TB);  // raw b col
+  static constexpr int RAW_B = KC * kTileBN > kTileBN * LDB ? KC * kTileBN
+                                                            : kTileBN * LDB;
+  static constexpr int RAW_A_BYTES = BM * LDA * sizeof(TA);
+  static constexpr int RAW_B_BYTES = RAW_B * sizeof(TB);
+  static constexpr int RAW_BYTES = RAW_A_BYTES + RAW_B_BYTES;
+  static constexpr int ACC_BYTES = BM * kTileBN * sizeof(float);
+  static constexpr int CA_BYTES = KC * BM * sizeof(float);       // ca[k][m]
+  static constexpr int CB_BYTES = KC * kTileBN * sizeof(float);  // cb[k][n]
+  static constexpr int C_BYTES = CA_BYTES + CB_BYTES;
+  // 16-byte chunks of a slice: a's first, then b's
+  static constexpr int A_CHUNKS = BM * KC / VA, B_CHUNKS = KC * kTileBN / VB;
+  static constexpr int CHUNK_ITERS =
+      (A_CHUNKS + B_CHUNKS + kTileThreads - 1) / kTileThreads;
+  // the accumulators, two rounded slices, STAGES raw slices in flight
+  static constexpr int BYTES = ACC_BYTES + 2 * C_BYTES + STAGES * RAW_BYTES;
+};
+
+// One raw chunk of V elements widened, and rounded unless `skip`.
+template <typename T>
+__device__ __forceinline__ void round_chunk(const T* src, float* w, float inv,
+                                            bool scaled, bool skip,
+                                            const QFmt& f) {
+  constexpr int V = 16 / sizeof(T);
+  alignas(16) T v[V];
+  *(uint4*)v = *(const uint4*)src;
+  if (skip) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) w[j] = widen(v[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      w[j] = round_operand(widen(v[j]), inv, scaled, false, f);
+  }
+}
+
+// A thread's TM x TN outputs into dst (M, N): rows r + 16 g + i, columns
+// c + 32 h + j, as float4 where the rows of dst are 16-byte aligned.
+template <int TM, int TN>
+__device__ __forceinline__ void store_tile(float* __restrict__ dst,
+                                           const float (&v)[TM][TN],
+                                           const QmmArgs& p, int r, int c) {
+  const bool vec4 = p.N % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = r + 16 * (i / 4) + i % 4;
+    if (m >= p.M) continue;
+    float* row = dst + (long long)m * p.N;
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const int n = c + 32 * h;
+      if (vec4 && n < p.N) {
+        *(float4*)(row + n) = make_float4(v[i][4 * h], v[i][4 * h + 1],
+                                          v[i][4 * h + 2], v[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < p.N) row[n + j] = v[i][4 * h + j];
+      }
+    }
+  }
+}
+
+// The 8 warps tile the block's outputs 4 (rows) x 2 (columns), each warp
+// BM / 4 x 64 with its lanes 4 x 8.  Lane (ly, lx) of a warp owns rows
+// 4 ly + 16 g + i (g < BM / 64, i < 4) and columns 4 lx + 32 h + j (h < 2,
+// j < 4) of the warp's tile, so at each k it reads its rows and columns of
+// the rounded slice as BM / 64 + 2 float4 from ca[k][m] and cb[k][n], and
+// the lanes of a warp read 64 and 128 contiguous bytes (no bank conflict).
+// A thread's partial dots stay in registers; its accumulators live in
+// shared memory, where it alone reads and folds them once per k block.
+// Each k slice goes global -> raw (cp.async, the ring's slices in flight)
+// -> rounded (two buffers) -> registers; the rounding of slice s + 1 and
+// the products of slice s run between the same two barriers.
+template <int BM, typename TA, typename TB>
+__global__ void __launch_bounds__(kTileThreads, TileCfg<BM>::PER_SM)
 qmm_tile_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
                 float* __restrict__ out, const QmmArgs p, int split) {
-  using S = TileSmem<TA, TB>;
-  constexpr int BM = kTileBM, BN = kTileBN;
-  constexpr int TM = 4;  // rows per thread
+  using S = TileSmem<BM, TA, TB>;
+  constexpr int BN = kTileBN, KC = S::KC, STAGES = S::STAGES;
+  constexpr int RG = BM / 64;  // groups of 4 rows per thread
+  constexpr int TM = 4 * RG;   // rows per thread
+  constexpr int TN = 8;        // columns per thread
   constexpr int VA = S::VA, VB = S::VB;
-  constexpr int SPB = kBK / kKC;  // slices per k block
-  static_assert(kBK % kKC == 0 && kKC % VA == 0 && kKC % VB == 0, "slice");
-  static_assert(kStages >= 3, "round s + 1 while s computes");
+  constexpr int SPB = kBK / KC;  // slices per k block
+  static_assert(BM == 64 || BM == 128, "the row tile");
+  static_assert(kBK % KC == 0 && KC % VA == 0 && KC % VB == 0, "slice");
+  static_assert(S::A_CHUNKS % 32 == 0, "a warp copies one operand");
+  static_assert(STAGES >= 2, "round s + 1 while s + 2 lands");
   extern __shared__ __align__(16) unsigned char smem[];
-  // [rounded slice 0 | rounded slice 1 | raw slice 0 | ... | raw kStages-1]
-  auto ca = [&](int i) { return (float*)(smem + (i & 1) * S::C_BYTES); };
+  // [accumulators | rounded slice 0 | rounded slice 1 | raw slice 0 | ...]
+  float4* accs = (float4*)smem;  // accs[q][thread], q < TM * TN / 4
+  unsigned char* cbase = smem + S::ACC_BYTES;
+  auto ca = [&](int i) { return (float*)(cbase + (i & 1) * S::C_BYTES); };
   auto cb = [&](int i) {
-    return (float*)(smem + (i & 1) * S::C_BYTES + S::CA_BYTES);
+    return (float*)(cbase + (i & 1) * S::C_BYTES + S::CA_BYTES);
   };
-  auto raw_a = [&](int i) {
-    return (TA*)(smem + 2 * S::C_BYTES + (i % kStages) * S::RAW_BYTES);
-  };
-  auto raw_b = [&](int i) {
-    return (TB*)(smem + 2 * S::C_BYTES + (i % kStages) * S::RAW_BYTES +
-                 S::RAW_A_BYTES);
-  };
+  unsigned char* raw_base = cbase + 2 * S::C_BYTES;  // + slot * RAW_BYTES
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int row0 = (warp % 4) * (BM / 4) + 4 * (lane / 8);  // + 16 g + i
+  const int col0 = (warp / 4) * 64 + 4 * (lane % 8);        // + 32 h + j
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int bb = blockIdx.z % p.nb;
   const int kb_begin = split ? blockIdx.z / p.nb : 0;
   const int kb_end = split ? kb_begin + 1 : p.gk;
   const int slices = (kb_end - kb_begin) * SPB;
-  const TA* ab = a + bb * p.sab;
   const bool scaled = p.a_scale != nullptr;
   const bool vec = p.vec;
 
+  // This thread's 16-byte chunks of every slice, fixed for the whole k
+  // loop (kind 0: a, 1: b along n, 2: b along k, -1: none; one kind per
+  // warp): where the copy reads the first slice and lands in a raw slice,
+  // the k (or k rows) left inside the operand from there (lim, advanced by
+  // KC a slice; -2^30 for a row or column past the end), and where the
+  // rounding reads the raw chunk and writes it to ca or cb.
+  constexpr int IT = S::CHUNK_ITERS;
+  int kind[IT], lim[IT], nval[IT], dst[IT], roff[IT], woff[IT];
+  const unsigned char* src[IT];
+  {
+    const int k_first = kb_begin * kBK;
+    const TA* ab = a + bb * p.sab;
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int ch = tid + it * kTileThreads;
+      kind[it] = -1;
+      lim[it] = nval[it] = dst[it] = roff[it] = woff[it] = 0;
+      src[it] = (const unsigned char*)a;
+      if (ch < S::A_CHUNKS) {
+        const int r = ch / (KC / VA), kc = (ch % (KC / VA)) * VA;
+        const int rr = ch % BM, kr = (ch / BM) * VA;  // the rounding's
+        kind[it] = 0;
+        lim[it] = m0 + r < p.M ? p.K - (k_first + kc) : -(1 << 30);
+        src[it] = (const unsigned char*)(ab + (m0 + r) * p.sam + k_first + kc);
+        dst[it] = (r * S::LDA + kc) * (int)sizeof(TA);
+        roff[it] = (rr * S::LDA + kr) * (int)sizeof(TA);
+        woff[it] = kr * BM + rr;
+      } else if (ch < S::A_CHUNKS + S::B_CHUNKS) {
+        const int cb_ = ch - S::A_CHUNKS;
+        if (p.b_col) {
+          const int c = cb_ % BN, kc = (cb_ / BN) * VB;
+          kind[it] = 2;
+          lim[it] = n0 + c < p.N ? p.K - (k_first + kc) : -(1 << 30);
+          src[it] = (const unsigned char*)(b + (long long)(n0 + c) * p.sbn +
+                                           k_first + kc);
+          dst[it] = roff[it] = S::RAW_A_BYTES + (c * S::LDB + kc) *
+                                                    (int)sizeof(TB);
+          woff[it] = kc * BN + c;
+        } else {
+          const int r = cb_ / (BN / VB), c = (cb_ % (BN / VB)) * VB;
+          kind[it] = 1;
+          lim[it] = p.K - (k_first + r);
+          nval[it] = min(max(p.N - (n0 + c), 0), VB);
+          src[it] = (const unsigned char*)(b + (long long)(k_first + r) *
+                                                   p.sbk + n0 + c);
+          dst[it] = roff[it] = S::RAW_A_BYTES + (r * BN + c) * (int)sizeof(TB);
+          woff[it] = r * BN + c;
+        }
+      }
+    }
+  }
+
   // the copies of slice s into its raw buffer, coalesced along each
-  // operand's contiguous dimension (none past the end; the group is
-  // committed all the same, so group s is slice s)
+  // operand's contiguous dimension; called for s = 0, 1, 2, ... in turn
+  // (none past the end; the group is committed all the same, so group s is
+  // slice s)
   auto issue = [&](int s) {
     if (s < slices) {
-      const int k0 = kb_begin * kBK + s * kKC;
-      TA* ra = raw_a(s);
-      TB* rb = raw_b(s);
-      for (int ch = tid; ch < BM * (kKC / VA); ch += kTileThreads) {
-        int r = ch / (kKC / VA), kc = (ch % (kKC / VA)) * VA;
-        int m = m0 + r, k = k0 + kc;
-        int valid = m < p.M ? min(max(p.K - k, 0), VA) : 0;
-        copy_chunk(ra + r * S::LDA + kc, ab + m * p.sam + k, valid, vec, a);
-      }
-      if (p.b_col) {
-        for (int ch = tid; ch < BN * (kKC / VB); ch += kTileThreads) {
-          int c = ch % BN, kc = (ch / BN) * VB;
-          int n = n0 + c, k = k0 + kc;
-          int valid = n < p.N ? min(max(p.K - k, 0), VB) : 0;
-          copy_chunk(rb + c * S::LDB + kc, b + (long long)n * p.sbn + k,
-                     valid, vec, b);
+      unsigned char* raw = raw_base + (s % STAGES) * S::RAW_BYTES;
+#pragma unroll
+      for (int it = 0; it < IT; ++it) {
+        if (kind[it] == 0) {
+          copy_chunk((TA*)(raw + dst[it]), (const TA*)src[it],
+                     min(max(lim[it], 0), VA), vec, a);
+          src[it] += KC * sizeof(TA);
+        } else if (kind[it] == 2) {
+          copy_chunk((TB*)(raw + dst[it]), (const TB*)src[it],
+                     min(max(lim[it], 0), VB), vec, b);
+          src[it] += KC * sizeof(TB);
+        } else if (kind[it] == 1) {
+          copy_chunk((TB*)(raw + dst[it]), (const TB*)src[it],
+                     lim[it] > 0 ? nval[it] : 0, vec, b);
+          src[it] += (long long)KC * p.sbk * sizeof(TB);
         }
-      } else {
-        for (int ch = tid; ch < kKC * (BN / VB); ch += kTileThreads) {
-          int r = ch / (BN / VB), c = (ch % (BN / VB)) * VB;
-          int n = n0 + c, k = k0 + r;
-          int valid = k < p.K ? min(max(p.N - n, 0), VB) : 0;
-          copy_chunk(rb + r * BN + c, b + (long long)k * p.sbk + n, valid,
-                     vec, b);
-        }
+        lim[it] -= KC;
       }
     }
     cp_async_commit();
   };
 
-  // round raw slice s into ca[m][k] and cb[k][n], with its k block's scales
+  // round raw slice s into ca[k][m] and cb[k][n], with its k block's
+  // scales.  The transposing stores go row by row (a) or column by column
+  // (k-contiguous b) across the lanes of a warp, so they hit 32 banks; the
+  // raw rows or columns they read lie an odd number of 16-byte units apart.
   auto round_slice = [&](int s) {
     if (s >= slices) return;
     const Scales sc = scales_at(p, bb, m0, n0, kb_begin + s / SPB);
-    const TA* ra = raw_a(s);
-    const TB* rb = raw_b(s);
+    const unsigned char* raw = raw_base + (s % STAGES) * S::RAW_BYTES;
     float* xa = ca(s);
     float* xb = cb(s);
-    for (int ch = tid; ch < BM * (kKC / VA); ch += kTileThreads) {
-      int r = ch / (kKC / VA), kc = (ch % (kKC / VA)) * VA;
-      alignas(16) TA v[VA];
-      alignas(16) float w[VA];
-      *(uint4*)v = *(const uint4*)(ra + r * S::LDA + kc);
 #pragma unroll
-      for (int j = 0; j < VA; ++j)
-        w[j] = round_operand(widen(v[j]), sc.inv_a, scaled, p.skip_a, p.f);
+    for (int it = 0; it < IT; ++it) {
+      alignas(16) float w[VA > VB ? VA : VB];
+      if (kind[it] == 0) {
+        round_chunk((const TA*)(raw + roff[it]), w, sc.inv_a, scaled,
+                    p.skip_a, p.f);
 #pragma unroll
-      for (int j = 0; j < VA; j += 4)
-        *(float4*)(xa + r * S::LDC + kc + j) = *(const float4*)(w + j);
-    }
-    if (p.b_col) {
-      for (int ch = tid; ch < BN * (kKC / VB); ch += kTileThreads) {
-        int c = ch % BN, kc = (ch / BN) * VB;
-        alignas(16) TB v[VB];
-        *(uint4*)v = *(const uint4*)(rb + c * S::LDB + kc);
+        for (int j = 0; j < VA; ++j) xa[woff[it] + j * BM] = w[j];
+      } else if (kind[it] == 2) {
+        round_chunk((const TB*)(raw + roff[it]), w, sc.inv_b, scaled,
+                    p.skip_b, p.f);
 #pragma unroll
-        for (int j = 0; j < VB; ++j)
-          xb[(kc + j) * BN + c] =
-              round_operand(widen(v[j]), sc.inv_b, scaled, p.skip_b, p.f);
-      }
-    } else {
-      for (int ch = tid; ch < kKC * (BN / VB); ch += kTileThreads) {
-        int r = ch / (BN / VB), c = (ch % (BN / VB)) * VB;
-        alignas(16) TB v[VB];
-        alignas(16) float w[VB];
-        *(uint4*)v = *(const uint4*)(rb + r * BN + c);
-#pragma unroll
-        for (int j = 0; j < VB; ++j)
-          w[j] = round_operand(widen(v[j]), sc.inv_b, scaled, p.skip_b, p.f);
+        for (int j = 0; j < VB; ++j) xb[woff[it] + j * BN] = w[j];
+      } else if (kind[it] == 1) {
+        round_chunk((const TB*)(raw + roff[it]), w, sc.inv_b, scaled,
+                    p.skip_b, p.f);
 #pragma unroll
         for (int j = 0; j < VB; j += 4)
-          *(float4*)(xb + r * BN + c + j) = *(const float4*)(w + j);
+          *(float4*)(xb + woff[it] + j) = *(const float4*)(w + j);
       }
     }
   };
 
-  float acc[TM][8], part[TM][8];
+  float part[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = part[i][j] = 0.0f;
+    for (int j = 0; j < TN; ++j) part[i][j] = 0.0f;
+  if (!split) {
+#pragma unroll
+    for (int q = 0; q < TM * TN / 4; ++q)
+      accs[q * kTileThreads + tid] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
 
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
-  cp_async_wait<kStages - 2>();  // raw slice 0
+  for (int s = 0; s < STAGES; ++s) issue(s);
+  cp_async_wait<STAGES - 1>();  // raw slice 0
   __syncthreads();
   round_slice(0);
   for (int s = 0; s < slices; ++s) {
     // raw slice s + 1 has landed and rounded slice s is complete, for every
     // thread; every thread is done with the products of slice s - 1 and the
-    // rounding of slice s
-    cp_async_wait<kStages - 3>();
+    // rounding of slice s, so raw slice s's buffer takes slice s + STAGES
+    // (issued after the rounding, which measured faster)
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-    issue(s + kStages - 1);
     round_slice(s + 1);
+    issue(s + STAGES);
 
-    const float* xa = ca(s);
-    const float* xb = cb(s);
+    const float* xa = ca(s) + row0;
+    const float* xb = cb(s) + col0;
 #pragma unroll
-    for (int kk = 0; kk < kKC; kk += 4) {
-      float4 av[TM];
+    for (int k = 0; k < KC; ++k) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int g = 0; g < RG; ++g) {
+        const float4 v = *(const float4*)(xa + k * BM + 16 * g);
+        av[4 * g] = v.x;
+        av[4 * g + 1] = v.y;
+        av[4 * g + 2] = v.z;
+        av[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = *(const float4*)(xb + k * BN + 32 * h);
+        bv[4 * h] = v.x;
+        bv[4 * h + 1] = v.y;
+        bv[4 * h + 2] = v.z;
+        bv[4 * h + 3] = v.w;
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
-        av[i] = *(const float4*)(xa + (4 * ty + i) * S::LDC + kk);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 b0 = *(const float4*)(xb + (kk + q) * BN + 4 * tx);
-        const float4 b1 = *(const float4*)(xb + (kk + q) * BN + 64 + 4 * tx);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float x = q == 0 ? av[i].x : q == 1 ? av[i].y
-                        : q == 2 ? av[i].z : av[i].w;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) part[i][j] = fmaf(x, bv[j], part[i][j]);
-        }
-      }
+        for (int j = 0; j < TN; ++j)
+          part[i][j] = fmaf(av[i], bv[j], part[i][j]);
     }
 
     if (s % SPB == SPB - 1) {  // the k block ends here
       const int kb = kb_begin + s / SPB;
       const Scales sc = scales_at(p, bb, m0, n0, kb);
       const float dq = __fmul_rn(sc.sa, sc.sb);
+      if (scaled) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) part[i][j] = __fmul_rn(part[i][j], dq);
+      }
+      if (split) {
+        store_tile(out + ((long long)kb * p.nb + bb) * p.M * p.N, part, p,
+                   m0 + row0, n0 + col0);
+      } else {
+#pragma unroll
+        for (int q = 0; q < TM * TN / 4; ++q) {
+          const int i = q / 2, h = q % 2;
+          float4 v = accs[q * kTileThreads + tid];
+          v.x = fold(v.x, part[i][4 * h], p);
+          v.y = fold(v.y, part[i][4 * h + 1], p);
+          v.z = fold(v.z, part[i][4 * h + 2], p);
+          v.w = fold(v.w, part[i][4 * h + 3], p);
+          accs[q * kTileThreads + tid] = v;
+        }
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float pt = part[i][j];
-          if (scaled) pt = __fmul_rn(pt, dq);
-          part[i][j] = 0.0f;
-          if (split) {
-            int m = m0 + 4 * ty + i;
-            int n = n0 + 4 * tx + (j % 4) + 64 * (j / 4);
-            if (m < p.M && n < p.N)
-              out[(((long long)kb * p.nb + bb) * p.M + m) * p.N + n] = pt;
-          } else {
-            acc[i][j] = fold(acc[i][j], pt, p);
-          }
-        }
+        for (int j = 0; j < TN; ++j) part[i][j] = 0.0f;
     }
   }
   if (split) return;
 
-  float* ob = out + (long long)bb * p.M * p.N;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    int m = m0 + 4 * ty + i;
-    if (m >= p.M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      int n = n0 + 4 * tx + (j % 4) + 64 * (j / 4);
-      if (n >= p.N) continue;
-      float v = acc[i][j];
-      if (p.has_out_fmt) v = quantize_rne_mul(v, p.out_f);
-      ob[(long long)m * p.N + n] = v;
-    }
+  for (int q = 0; q < TM * TN / 4; ++q) {  // the accumulators, out_fmt
+    const int i = q / 2, h = q % 2;
+    const float4 v = accs[q * kTileThreads + tid];
+    part[i][4 * h] = v.x;
+    part[i][4 * h + 1] = v.y;
+    part[i][4 * h + 2] = v.z;
+    part[i][4 * h + 3] = v.w;
   }
+  if (p.has_out_fmt) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        part[i][j] = quantize_rne_mul(part[i][j], p.out_f);
+  }
+  store_tile(out + (long long)bb * p.M * p.N, part, p, m0 + row0, n0 + col0);
 }
 
 // ---------------------------------------------------------------------------
@@ -560,14 +698,14 @@ int set_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename TA, typename TB>
+template <int BM, typename TA, typename TB>
 int launch_tile(const void* a, const void* b, float* dst, const QmmArgs& p,
                 int split, cudaStream_t s) {
-  constexpr int bytes = TileSmem<TA, TB>::BYTES;
-  if (int rc = set_smem(qmm_tile_kernel<TA, TB>, bytes)) return rc;
-  dim3 grid((p.N + kTileBN - 1) / kTileBN, (p.M + kTileBM - 1) / kTileBM,
+  constexpr int bytes = TileSmem<BM, TA, TB>::BYTES;
+  if (int rc = set_smem(qmm_tile_kernel<BM, TA, TB>, bytes)) return rc;
+  dim3 grid((p.N + kTileBN - 1) / kTileBN, (p.M + BM - 1) / BM,
             p.nb * (split ? p.gk : 1));
-  qmm_tile_kernel<TA, TB><<<grid, kTileThreads, bytes, s>>>(
+  qmm_tile_kernel<BM, TA, TB><<<grid, kTileThreads, bytes, s>>>(
       (const TA*)a, (const TB*)b, dst, p, split);
   return (int)cudaGetLastError();
 }
@@ -601,9 +739,12 @@ int launch_typed(const void* a, const void* b, float* out, float* ws,
     else if (rows <= 8) rc = launch_rows_r<8, TA, TB>(a, b, ws, p, bn, s);
     else rc = launch_rows_r<16, TA, TB>(a, b, ws, p, bn, s);
   } else {
-    if (bn != kTileBN || bm != kTileBM) return (int)cudaErrorInvalidValue;
+    if (bn != kTileBN || (bm != 128 && bm != 64))
+      return (int)cudaErrorInvalidValue;
     int split = schedule == kSplitTile;
-    rc = launch_tile<TA, TB>(a, b, split ? ws : out, p, split, s);
+    float* dst = split ? ws : out;
+    rc = bm == 128 ? launch_tile<128, TA, TB>(a, b, dst, p, split, s)
+                   : launch_tile<64, TA, TB>(a, b, dst, p, split, s);
   }
   if (rc || schedule == kWhole) return rc;
   long long total = (long long)p.nb * p.M * p.N;

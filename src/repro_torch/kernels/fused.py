@@ -7,14 +7,14 @@ Counterpart of ``repro.kernels.fused``.
 
 K1: the TPU kernel ran the grid (B, M/128, N/128, K/128) with the k axis
 sequential into a VMEM accumulator.  On the card ``plan_qmm`` picks one of
-three schedules: ``whole`` (one thread block per output tile loops over the
-128-deep k blocks and folds them in registers; prefill shapes whose tile
-grid fills the card), ``split_rows`` (M <= 16, decode: one thread block per
-column tile and k block) or ``split_tile`` (prefill shapes with a small
-tile grid); a split writes each k block's part to a workspace that a second
-kernel folds in k-block order.  ``fused_qmm_ref`` is the plain version: a
-replay of the same k-block schedule in PyTorch, which the CPU path runs and
-the card check compares against.
+three schedules: ``whole`` (one thread block per output tile of 128 or 64
+rows loops over the 128-deep k blocks and folds them in order; prefill
+shapes whose tile grid fills the card), ``split_rows`` (M <= 16, decode:
+one thread block per column tile and k block) or ``split_tile`` (prefill
+shapes with a small tile grid); a split writes each k block's part to a
+workspace that a second kernel folds in k-block order.  ``fused_qmm_ref``
+is the plain version: a replay of the same k-block schedule in PyTorch,
+which the CPU path runs and the card check compares against.
 Power-of-two scaling (``scaled=True``) is exact: the scale is built from
 exponent bits of the tile's largest magnitude, so rescaling adds no rounding
 of its own and a scaled product equals the unscaled one wherever the
@@ -107,19 +107,27 @@ def fused_qmm_ref(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
 
 
 #: the planner's thresholds, set between readings of scripts/qmm_sweep.py
-#: on the H100 (PERF.md): the whole-k schedule runs where its tile blocks,
-#: TILE_BLOCKS_PER_SM to an SM (bf16 operands), keep at least this share of
-#: the slots of their waves busy (split_tile was faster at 0.48 and 0.67,
-#: whole at 0.89 and 0.97); split_rows narrows its column tile until the
-#: grid holds SPLIT_WAVES waves of the card's SMs (2 was the fastest bf16
-#: decode forward of 1, 2 and 4)
+#: on the H100 (PERF.md): a schedule takes a row tile whose grid of thread
+#: blocks, as many to an SM as TILE_ROWS gives (bf16 operands), keeps at
+#: least WHOLE_MIN_FILL of the slots of its waves busy, whole k first, then
+#: split_tile.  With 64-row tiles split_tile was faster at fills of 0.48 and
+#: 0.67, whole at 0.89 and 0.97; with 128-row tiles split_tile was faster at
+#: 0.24-0.67 (tinyllama's projections at M = 512: 0.19 against 0.41 ms on
+#: wq, 0.43 against 0.58 on w_gate), the two equal at 0.67 (w_gate at M =
+#: 1024: 0.79 ms either way), whole faster at 0.87-0.97.  The
+#: 128-row tile beat the 64-row one at every fill both reach (19.1 against
+#: 21.1 ms on starcoder2-7b's w_up; 0.19 against 0.22 on tinyllama's wq
+#: split).  split_rows narrows its column tile until the grid holds
+#: SPLIT_WAVES waves of the card's SMs (2 was the fastest bf16 decode
+#: forward of 1, 2 and 4)
 WHOLE_MIN_FILL = 0.78
-TILE_BLOCKS_PER_SM = 2
 SPLIT_WAVES = 2.0
-#: the most rows the split_rows schedule takes (decode batches), and the
-#: rows of the tiled kernel's output tile
+#: the tiled kernel's row tiles, the first preferred, each with the thread
+#: blocks of it that an SM holds; a tile wider than the last is taken only
+#: for more than half its rows
+TILE_ROWS = ((128, 2), (64, 2))
+#: the most rows the split_rows schedule takes (decode batches)
 SPLIT_ROWS_MAX_M = 16
-TILE_BM = 64
 _SCHEDULE_CODE = {"whole": 0, "split_rows": 1, "split_tile": 2}
 _GRID_YZ_MAX = 65535
 
@@ -142,14 +150,16 @@ def plan_qmm(nb: int, m: int, n: int, k: int, sm_count: int) -> QmmPlan:
     """The schedule of one K1 call, (nb, m, k) @ (k, n), on a card with
     ``sm_count`` SMs.
 
-    The whole k loop stays in one thread block when the grid of 64 x 128
+    The whole k loop stays in one thread block when the grid of bm x 128
     output tiles keeps at least ``WHOLE_MIN_FILL`` of the slots of its
-    waves busy (or there is one k block at most): a last wave that is
-    mostly empty costs more than the split's workspace and fold.
-    Otherwise the k blocks run in parallel thread blocks and a fold
-    follows.  M <= 16 always splits (decode: a few rows,
-    every weight read once), with the widest column tile that still gives
-    ``SPLIT_WAVES`` waves.  Raises on shapes the kernels cannot take."""
+    waves busy (or there is one k block at most), on the first row tile of
+    ``TILE_ROWS`` that does: a last wave that is mostly empty costs more
+    than the split's workspace and fold.  Otherwise the k blocks run in
+    parallel thread blocks and a fold follows, on the first row tile whose
+    grid fills the card as well (else on the narrowest).  M <= 16 always
+    splits (decode: a few rows, every weight read once), with the widest
+    column tile that still gives ``SPLIT_WAVES`` waves.  Raises on shapes
+    the kernels cannot take."""
     if min(nb, m, n, sm_count) < 1 or k < 0:
         raise ValueError(f"plan_qmm: bad shape nb={nb} m={m} n={n} k={k} "
                          f"sm_count={sm_count}")
@@ -163,12 +173,25 @@ def plan_qmm(nb: int, m: int, n: int, k: int, sm_count: int) -> QmmPlan:
         if gk > _GRID_YZ_MAX or nb > _GRID_YZ_MAX:
             raise ValueError(f"plan_qmm: k={k} or nb={nb} beyond the grid")
         return plan
-    tiles = nb * -(-m // TILE_BM) * -(-n // TILE)
-    if gk <= 1 or tile_fill(tiles, sm_count) >= WHOLE_MIN_FILL:
-        plan = QmmPlan("whole", TILE_BM, TILE, tiles, 0)
-    else:
-        plan = QmmPlan("split_tile", TILE_BM, TILE, tiles * gk,
+    # no row tile of mostly padding rows, but for the narrowest
+    rows = [(bm, per_sm) for bm, per_sm in TILE_ROWS
+            if 2 * m > bm or bm == TILE_ROWS[-1][0]]
+
+    def tiled(schedule, bm):
+        blocks = nb * -(-m // bm) * -(-n // TILE)
+        if schedule == "whole":
+            return QmmPlan("whole", bm, TILE, blocks, 0)
+        return QmmPlan("split_tile", bm, TILE, blocks * gk,
                        4 * gk * nb * m * n)
+
+    plan = tiled("split_tile", rows[-1][0])  # when no grid fills the card
+    for schedule, (bm, per_sm) in [(sch, r) for sch in ("whole", "split_tile")
+                                   for r in rows]:
+        cand = tiled(schedule, bm)
+        if (schedule == "whole" and gk <= 1) or \
+                tile_fill(cand.blocks, sm_count, per_sm) >= WHOLE_MIN_FILL:
+            plan = cand
+            break
     grid_z = nb * (gk if plan.schedule == "split_tile" else 1)
     if -(-m // plan.bm) > _GRID_YZ_MAX or grid_z > _GRID_YZ_MAX:
         raise ValueError(f"plan_qmm: m={m}, nb={nb} or k={k} beyond the "
@@ -176,10 +199,10 @@ def plan_qmm(nb: int, m: int, n: int, k: int, sm_count: int) -> QmmPlan:
     return plan
 
 
-def tile_fill(tiles: int, sm_count: int) -> float:
+def tile_fill(tiles: int, sm_count: int, per_sm: int) -> float:
     """The share of thread-block slots that ``tiles`` blocks of the tiled
-    kernel keep busy over their waves, TILE_BLOCKS_PER_SM to an SM."""
-    slots = TILE_BLOCKS_PER_SM * sm_count
+    kernel keep busy over their waves, ``per_sm`` to an SM."""
+    slots = per_sm * sm_count
     return tiles / (-(-tiles // slots) * slots)
 
 
@@ -298,7 +321,8 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
     operands, b through its strides) and counts the launch in
     ``fused_qmm.launches``.  Each call runs in the phase scope ``k1``
     (``telemetry.scope``), timed on the device by CUDA events, with the
-    shape, the schedule (``ref`` on the CPU), the format and the style."""
+    shape, the schedule (``ref`` on the CPU) and its block rows ``bm`` (the
+    plain version's 128-row tiles on the CPU), the format and the style."""
     _build.refuse_dtensor("fused_qmm", a, b)
     batched = a.dim() == 3
     a3 = a if batched else a[None]
@@ -310,10 +334,13 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *, fmt: FloatFormat,
         if sc.on:
             nb, m, k = a3.shape
             n = b.shape[1]
-            schedule = plan_qmm(nb, m, n, k, sm_count(a.device)).schedule \
-                if a.device.type == "cuda" else "ref"
-            sc.set(nb=nb, m=m, k=k, n=n, schedule=schedule, fmt=fmt.name,
-                   style=style)
+            if a.device.type == "cuda":
+                plan = plan_qmm(nb, m, n, k, sm_count(a.device))
+                schedule, bm = plan.schedule, plan.bm
+            else:
+                schedule, bm = "ref", TILE
+            sc.set(nb=nb, m=m, k=k, n=n, schedule=schedule, bm=bm,
+                   fmt=fmt.name, style=style)
         if a.device.type == "cpu":
             return fused_qmm_ref(a, b, fmt=fmt, style=style,
                                  out_fmt=out_fmt, scaled=scaled, bm=TILE,

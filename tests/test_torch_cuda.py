@@ -150,11 +150,15 @@ def _qmm_operands(card, m, k, n, layout, seed, nb=None):
     return a, b
 
 
-def _plan(monkeypatch, schedule, a, b):
+def _plan(monkeypatch, schedule, a, b, bm=None):
+    """Force ``schedule`` through the planner, and with ``bm`` the tiled
+    kernel's row tile (64 or 128) on both whole and split_tile."""
     from repro_torch.kernels import fused as tfused
     sms, fill = SCHEDULES[schedule]
     monkeypatch.setattr(tfused, "sm_count", lambda device: sms)
     monkeypatch.setattr(tfused, "WHOLE_MIN_FILL", fill)
+    if bm is not None:
+        monkeypatch.setattr(tfused, "TILE_ROWS", ((bm, 2),))
     nb, m = (1, a.shape[0]) if a.dim() == 2 else a.shape[:2]
     return tfused.plan_qmm(nb, m, b.shape[1], b.shape[0], sms)
 
@@ -189,14 +193,52 @@ def test_fused_qmm_exact_on_both_schedules(card, monkeypatch, m, schedule,
                                            out_fmt=tf.BF16))
 
 
+# (M, N, K) across the edges of 128-row and 128-column tiles, K ragged
+EDGE_SHAPES = [(129, 37, 300), (129, 300, 1000), (300, 37, 1000),
+               (300, 300, 300)]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in EDGE_SHAPES])
+def test_fused_qmm_exact_on_each_row_tile(card, monkeypatch, shape, bm,
+                                          schedule, layout):
+    """K1 and K3 on the tiled kernel's 64- and 128-row tiles, forced
+    through the planner on both whole and split_tile, exactly equal to
+    their plain versions on every format, style, scaled and out_fmt, with
+    bf16 and f32 operands and b as (K, N) or table.T."""
+    m, n, k = shape
+    a, b = _qmm_operands(card, m, k, n, layout, m + n + k)
+    plan = _plan(monkeypatch, schedule, a, b, bm)
+    assert plan.bm == bm
+    assert plan.schedule == ("whole" if schedule == "whole" else
+                             "split_tile")
+    for fmt in (tf.BF16, tf.FP16, tf.FP8_E4M3, tf.TF32):
+        for style in STYLES:
+            for scaled in (False, True):
+                out_fmt = tf.FP16 if scaled else None
+                got = fused_qmm(a, b, fmt=fmt, style=style, scaled=scaled,
+                                out_fmt=out_fmt)
+                _exact(got, fused_qmm_ref(a, b, fmt=fmt, style=style,
+                                          scaled=scaled, out_fmt=out_fmt,
+                                          bm=128, bn=128))
+            got = fma_emu_matmul(a, b, fmt=fmt, style=style, out_fmt=tf.BF16)
+            _exact(got, fma_emu_matmul_ref(a, b, fmt=fmt, style=style,
+                                           out_fmt=tf.BF16))
+
+
+@pytest.mark.parametrize("bm", [None, 64, 128])
 @pytest.mark.parametrize("schedule", sorted(SCHEDULES))
 @pytest.mark.parametrize("m", [1, 129])
-def test_fused_qmm_exact_batched_scaled(card, monkeypatch, m, schedule):
-    """nb = 3 slices of a, each with its own tile scales."""
+def test_fused_qmm_exact_batched_scaled(card, monkeypatch, m, schedule, bm):
+    """nb = 3 slices of a, each with its own tile scales (on the planner's
+    row tile, or on a forced one)."""
     a, b = _qmm_operands(card, m, 300, 37, "kn_padded", 7, nb=3)
     a = a * torch.tensor([1.0, 2.0 ** 20, 2.0 ** -30], device=card
                          ).to(a.dtype)[:, None, None]
-    _plan(monkeypatch, schedule, a, b)
+    _plan(monkeypatch, schedule, a, b, bm)
     for fmt in (tf.BF16, tf.FP8_E4M3):
         for style in STYLES:
             got = fused_qmm(a, b, fmt=fmt, style=style, scaled=True)
@@ -204,9 +246,10 @@ def test_fused_qmm_exact_batched_scaled(card, monkeypatch, m, schedule):
                                       scaled=True, bm=128, bn=128))
 
 
+@pytest.mark.parametrize("bm", [None, 64, 128])
 @pytest.mark.parametrize("schedule", sorted(SCHEDULES))
 @pytest.mark.parametrize("m", [4, 129])
-def test_fused_qmm_exact_with_specials(card, monkeypatch, m, schedule):
+def test_fused_qmm_exact_with_specials(card, monkeypatch, m, schedule, bm):
     """+-0, +-inf, NaN and f32 subnormals planted inside tiles of a (rows
     0-1) and b (columns 0-4), f32 operands, every style and out_fmt; the
     other outputs stay finite."""
@@ -220,7 +263,7 @@ def test_fused_qmm_exact_with_specials(card, monkeypatch, m, schedule):
         b[int(r.integers(300)), i % 5] = special[i % len(special)]
     b[:, 5] = 1e-40  # a column of subnormals only
     a[2, 128:256] = -0.0  # a whole k block of negative zeros
-    _plan(monkeypatch, schedule, a, b)
+    _plan(monkeypatch, schedule, a, b, bm)
     finite = 0
     for fmt in (tf.BF16, tf.FP8_E5M2):
         for style in STYLES:

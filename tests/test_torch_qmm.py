@@ -42,12 +42,73 @@ def test_plan_splits_every_decode_projection(name):
     assert plan.blocks >= 1.9 * H100_SMS  # about two waves at least
 
 
-@pytest.mark.parametrize("m,n,k", [(2048, 5632, 2048), (1024, 2048, 2048),
-                                   (4096, 32000, 2048), (1024, 2048, 5632)])
-def test_plan_keeps_whole_k_where_the_tile_grid_fills_the_card(m, n, k):
+def _per_sm(bm):
+    return dict(tfused.TILE_ROWS)[bm]
+
+
+@pytest.mark.parametrize("m,n,k,bm", [(2048, 5632, 2048, 128),
+                                      (1024, 2048, 2048, 64),
+                                      (4096, 32000, 2048, 128),
+                                      (1024, 2048, 5632, 64)])
+def test_plan_keeps_whole_k_where_the_tile_grid_fills_the_card(m, n, k, bm):
+    """Whole k on the widest row tile whose grid, as many blocks to an SM as
+    the tile gets, fills at least WHOLE_MIN_FILL of its waves' slots: 128
+    rows where their grid does, else 64 (1024 rows by 16 column tiles are
+    128 tiles of 128 rows, under half of the 264 slots)."""
     plan = plan_qmm(1, m, n, k, H100_SMS)
-    assert plan == QmmPlan("whole", 64, 128, -(-m // 64) * -(-n // 128), 0)
-    assert tfused.tile_fill(plan.blocks, H100_SMS) >= tfused.WHOLE_MIN_FILL
+    assert plan == QmmPlan("whole", bm, 128, -(-m // bm) * -(-n // 128), 0)
+    assert tfused.tile_fill(plan.blocks, H100_SMS, _per_sm(bm)) >= \
+        tfused.WHOLE_MIN_FILL
+    for wider, per_sm in tfused.TILE_ROWS:
+        if wider > bm:
+            tiles = -(-m // wider) * -(-n // 128)
+            assert tfused.tile_fill(tiles, H100_SMS, per_sm) < \
+                tfused.WHOLE_MIN_FILL
+
+
+def _eval_shapes(arch="starcoder2-7b"):
+    """(K, N) of the five distinct K1 shapes of one emulated forward."""
+    shapes = _decode_shapes(arch)
+    return {name: shapes[name]
+            for name in ("wq", "wk", "w_up", "w_down", "unembed")}
+
+
+EVAL_BM = {"wq": 128, "wk": 64, "w_up": 128, "w_down": 128, "unembed": 128}
+
+
+@pytest.mark.parametrize("name", sorted(_eval_shapes()))
+def test_plan_of_each_starcoder2_eval_shape(name):
+    """The eval cell's forwards of 2 x 2048 tokens: every projection and the
+    unembed at M = 4096 keeps whole k, on 128-row tiles but for wk and wv
+    (N = 512), whose 128 tiles of 128 rows would fill under half the slots
+    of one wave and take 256 tiles of 64 rows."""
+    k, n = _eval_shapes()[name]
+    plan = plan_qmm(1, 4096, n, k, H100_SMS)
+    bm = EVAL_BM[name]
+    assert (plan.schedule, plan.bm) == ("whole", bm)
+    assert plan.blocks == 4096 // bm * -(-n // 128)
+    assert tfused.tile_fill(plan.blocks, H100_SMS, _per_sm(bm)) >= 0.85
+
+
+def test_plan_takes_the_fastest_path_at_prefill_and_decode():
+    """tinyllama's 512-row prefill fills too few waves of whole-k tiles and
+    splits k, on 128-row tiles but for wk and wv (N = 256: 128 blocks of
+    128 rows, 256 of 64); decode (M <= 16) keeps split_rows."""
+    for name, (k, n) in _decode_shapes().items():
+        if name != "unembed":
+            plan = plan_qmm(1, 512, n, k, H100_SMS)
+            assert (plan.schedule, plan.bm) == \
+                ("split_tile", 64 if name in ("wk", "wv") else 128)
+        for m in (1, 4, 16):
+            plan = plan_qmm(1, m, n, k, H100_SMS)
+            assert (plan.schedule, plan.bm) == ("split_rows", m)
+
+
+def test_plan_takes_the_128_row_tile_only_for_more_than_64_rows():
+    k, n = 4608, 264 * 128  # 264 column tiles: one wave of either tile
+    assert plan_qmm(1, 64, n, k, H100_SMS).bm == 64
+    assert plan_qmm(1, 65, n, k, H100_SMS).bm == 128
+    assert plan_qmm(3, 17, n, k, H100_SMS).bm == 64
 
 
 def test_plan_splits_small_n_at_prefill():
@@ -59,18 +120,22 @@ def test_plan_splits_small_n_at_prefill():
 @pytest.mark.parametrize("name", sorted(set(_decode_shapes()) - {"unembed"}))
 def test_plan_splits_every_projection_of_a_512_row_prefill(name):
     """At M = 512 the last wave of 64 x 128 tiles is at most 2/3 full on
-    132 SMs (two tile blocks to an SM), where split_tile measured faster."""
+    132 SMs (two tile blocks to an SM), where split_tile measured faster,
+    and so is the last wave of 128 x 128 tiles."""
     k, n = _decode_shapes()[name]
     plan = plan_qmm(1, 512, n, k, H100_SMS)
     assert plan.schedule == "split_tile"
-    assert tfused.tile_fill(8 * -(-n // 128), H100_SMS) <= 2 / 3
+    assert tfused.tile_fill(8 * -(-n // 128), H100_SMS, 2) <= 2 / 3
+    assert tfused.tile_fill(4 * -(-n // 128), H100_SMS, 2) <= 2 / 3
 
 
 def test_tile_fill_counts_the_slots_of_every_wave():
-    assert tfused.tile_fill(264, 132) == 1.0
-    assert tfused.tile_fill(265, 132) == 265 / 528
-    assert tfused.tile_fill(352, 132) == 352 / 528
-    assert tfused.tile_fill(1, 1) == 0.5
+    assert tfused.tile_fill(264, 132, 2) == 1.0
+    assert tfused.tile_fill(265, 132, 2) == 265 / 528
+    assert tfused.tile_fill(352, 132, 2) == 352 / 528
+    assert tfused.tile_fill(1, 1, 2) == 0.5
+    assert tfused.tile_fill(128, 132, 1) == 128 / 132
+    assert tfused.tile_fill(133, 132, 1) == 133 / 264
 
 
 def test_plan_one_k_block_needs_no_split():
@@ -98,6 +163,7 @@ def test_plan_tiles_stay_inside_logical_tiles(seed):
             assert m <= SPLIT_ROWS_MAX_M and plan.bm == m  # one row tile
         else:
             assert TILE % plan.bm == 0 and plan.bn == TILE
+            assert plan.bm in [bm for bm, _ in tfused.TILE_ROWS]
         gk = -(-k // TILE)
         if plan.schedule == "whole":
             assert plan.workspace_bytes == 0

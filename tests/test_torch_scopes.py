@@ -175,9 +175,9 @@ def test_k1_scope_carries_the_call(lm):
     assert torch.equal(on, off)
     k1 = tel.profiled_session().scopes_named("k1")
     assert [s.attrs for s in k1] == [
-        dict(nb=2, m=5, k=130, n=7, schedule="ref", fmt="bf16",
+        dict(nb=2, m=5, k=130, n=7, schedule="ref", bm=128, fmt="bf16",
              style="cascade"),
-        dict(nb=1, m=5, k=130, n=7, schedule="ref", fmt="bf16",
+        dict(nb=1, m=5, k=130, n=7, schedule="ref", bm=128, fmt="bf16",
              style="fused")]
     # the attrs are plan_qmm's arguments: a card's plan of the same call
     s = k1[0].attrs

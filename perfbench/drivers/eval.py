@@ -26,6 +26,9 @@ import torch
 from perfbench import counting, generate, harness
 from perfbench.trace import DeviceTrace
 
+#: what this driver needs of a family beyond ``harness.FAMILY_NEEDS``
+FAMILY_NEEDS = ("k1_forward_bound_s",)
+
 
 def score(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Each position's log-probability of the next token (B, S - 1)."""
@@ -99,9 +102,9 @@ def run(r: harness.Run) -> harness.Outcome:
     record = {
         "config": cfg, "traffic": tr, "window_s": window_s,
         "forwards": n, "scored_tokens": scored, "tokens": n * B * S,
-        "model_flops": n * counting.model_flops(
+        "model_flops": n * fam.model_flops(
             cfg, B * S, B * counting.causal_pairs(S)),
-        "k1_bound_s_per_forward": counting.k1_forward_bound_s(cfg, B * S),
+        "k1_bound_s_per_forward": fam.k1_forward_bound_s(cfg, B * S),
         "spans": spans.items, "profile": trace.summary}
     return harness.Outcome(
         attempted=n * B, failed=bad_rows,

@@ -36,11 +36,11 @@ from perfbench import counting, generate, harness
 from perfbench.trace import DeviceTrace
 
 
-def window_work(cfg: dict, reqs, out_at_start: dict) -> dict:
-    """Prompt tokens prefilled, tokens decoded and the model FLOPs of the
-    outputs committed between the window's start and end (output 0 comes
-    from the prompt's forward; output k >= 1 from a decode step over
-    P + k keys)."""
+def window_work(fam, cfg: dict, reqs, out_at_start: dict) -> dict:
+    """Prompt tokens prefilled, tokens decoded and the model FLOPs, by the
+    family ``fam``'s count, of the outputs committed between the window's
+    start and end (output 0 comes from the prompt's forward; output k >= 1
+    from a decode step over P + k keys)."""
     prompt = decoded = pairs = 0
     for req in reqs:
         P = len(req.prompt)
@@ -53,8 +53,7 @@ def window_work(cfg: dict, reqs, out_at_start: dict) -> dict:
             decoded += k1 - a
             pairs += (k1 - a) * P + (k1 - 1 + a) * (k1 - a) // 2
     return {"prompt_tokens": prompt, "decoded_tokens": decoded,
-            "model_flops": counting.model_flops(cfg, prompt + decoded,
-                                                pairs)}
+            "model_flops": fam.model_flops(cfg, prompt + decoded, pairs)}
 
 
 def sample(reqs, seed: int, want_tokens: int):
@@ -168,7 +167,7 @@ def run(r: harness.Run) -> harness.Outcome:
     delivered = server.tokens_decoded - tok0
     ttft = [q.first_token_s - q.submitted_s for q in reqs
             if q.first_token_s is not None and t0 <= q.first_token_s <= now]
-    work = window_work(cfg, reqs, out_at_start)
+    work = window_work(fam, cfg, reqs, out_at_start)
     failed = len(server.rejected) - rejected0 + sum(
         1 for q in finished_in_window if q.expired)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0

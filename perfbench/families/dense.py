@@ -1,6 +1,7 @@
 """The dense decoder family: the program's model for a configuration
-file, the weights made from the seed, and (from ``perfbench.reference``)
-the plain float32 reference."""
+file, the weights made from the seed, (from ``perfbench.reference``) the
+plain float32 reference, and (from ``perfbench.counting``) model FLOPs
+and K1's bound from the file's dense shapes."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,6 +9,7 @@ from typing import Dict
 
 import torch
 
+from perfbench.counting import k1_forward_bound_s, model_flops  # noqa: F401
 from perfbench.generate import torch_seed
 from perfbench.reference.dense import reference_logits  # noqa: F401
 

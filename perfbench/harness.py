@@ -7,8 +7,9 @@ in a file of its own, found by name:
 
 - ``perfbench/configs/<config>.json`` (via the ``configs`` entry's
   ``file``), whose ``family`` names ``perfbench/families/<family>.py``
-  (the program's model and the weights) and ``perfbench/reference/
-  <family>.py`` (the plain reference);
+  (the program's model, the weights, the plain reference from
+  ``perfbench/reference/<family>.py``, and the family's counts of model
+  FLOPs and K1's bound from the file's published shapes);
 - ``perfbench/traffic/<traffic>.json``, whose ``kind`` names the driver
   ``perfbench/drivers/<kind>.py``;
 - ``perfbench/limits/<cell>.json``: the limit of each number compared;
@@ -31,6 +32,10 @@ ROOT = HERE.parent
 #: top-level module names that may not be loaded in a run (the JAX
 #: package is ``repro``; the port, ``repro_torch``, is another name)
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "repro")
+#: what every family module gives; a driver names what else it needs
+#: from the family in its own ``FAMILY_NEEDS``
+FAMILY_NEEDS = ("program", "make_weights", "reference_logits",
+                "model_flops")
 
 
 def load_json(path: Path) -> dict:
@@ -61,10 +66,11 @@ def resolve_cell(name: str) -> Cell:
         raise KeyError(f"no workload {name!r}; have {sorted(cells)}")
     w = cells[name]
     cfg = {c["name"]: c for c in spec["configs"]}[w["config"]]
+    config = load_json(ROOT / cfg["file"])
+    traffic = load_json(HERE / "traffic" / f"{w['traffic']}.json")
+    check_family(config, traffic)
     return Cell(
-        name=name, chips=int(w["chips"]),
-        config=load_json(ROOT / cfg["file"]),
-        traffic=load_json(HERE / "traffic" / f"{w['traffic']}.json"),
+        name=name, chips=int(w["chips"]), config=config, traffic=traffic,
         limits=load_json(HERE / "limits" / f"{name}.json"),
         end_to_end=[m for m in spec["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in spec["per_layer"] if _reports(m, name)])
@@ -76,6 +82,20 @@ def family(config: dict):
 
 def driver(traffic: dict):
     return importlib.import_module(f"perfbench.drivers.{traffic['kind']}")
+
+
+def check_family(config: dict, traffic: dict) -> None:
+    """Raise, before any weights are made, if the configuration's family
+    lacks a function that every family or the traffic's driver needs."""
+    fam = family(config)
+    needs = FAMILY_NEEDS + tuple(getattr(driver(traffic), "FAMILY_NEEDS",
+                                         ()))
+    missing = [n for n in needs if not callable(getattr(fam, n, None))]
+    if missing:
+        raise AttributeError(
+            f"perfbench/families/{config['family']}.py has no "
+            f"{', '.join(missing)}: a {traffic['kind']!r} cell needs "
+            f"{', '.join(needs)} of its family")
 
 
 def metric_reader(name: str) -> Callable[[dict], Optional[float]]:

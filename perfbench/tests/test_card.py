@@ -19,6 +19,7 @@ ROOT = Path(__file__).resolve().parents[2]
 @pytest.mark.parametrize("name,trace,seconds", [
     ("starcoder2-7b.emulated_eval", 0, 3),
     ("starcoder2-7b.emulated_eval", 1, 3),
+    ("chatglm3-6b.emulated_eval", 0, 3),
     # a serving window checks the requests that finish in it: its first
     # step (~3 s) finishes none, so it needs a few
     ("chatglm3-6b.serve_longprompt", 0, 12)])

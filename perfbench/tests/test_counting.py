@@ -83,7 +83,7 @@ def test_window_work_against_a_loop():
                 prompt, pairs = prompt + P, pairs + P * (P + 1) // 2
             else:  # a decode step over P + k keys
                 decoded, pairs = decoded + 1, pairs + P + k
-    got = window_work(cfg, reqs, start)
+    got = window_work(harness.family(cfg), cfg, reqs, start)
     assert (got["prompt_tokens"], got["decoded_tokens"]) == (prompt, decoded)
     assert math.isclose(got["model_flops"],
                         counting.model_flops(cfg, prompt + decoded, pairs))

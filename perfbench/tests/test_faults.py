@@ -17,8 +17,16 @@ import torch
 
 from repro_torch.models.model import LM
 
-EVAL = "starcoder2-7b.emulated_eval"
+EVALS = ["starcoder2-7b.emulated_eval", "chatglm3-6b.emulated_eval"]
 SERVE = "chatglm3-6b.serve_longprompt"
+
+
+def on_each_eval(values, ids):
+    """(value, cell) cases over every eval cell; the first cell's cases
+    keep the bare ids they had when it was the only one."""
+    return [pytest.param(v, cell, id=i if cell == EVALS[0] else
+                         f"{i}-{cell}")
+            for cell in EVALS for v, i in zip(values, ids)]
 
 
 def run(cell, control=False, seed=2**31 + 11):
@@ -29,7 +37,7 @@ def run(cell, control=False, seed=2**31 + 11):
                            time.perf_counter(), control=control)
 
 
-@pytest.mark.parametrize("name", [EVAL, SERVE])
+@pytest.mark.parametrize("name", EVALS + [SERVE])
 def test_sound_run_is_correct(tiny_cell, name):
     out = run(tiny_cell(name))
     assert out.correct, out.checks
@@ -64,11 +72,14 @@ def eval_unchanged(apply):
     return broken
 
 
-@pytest.mark.parametrize("fault", [eval_altered, eval_half_batch,
-                                   eval_unchanged])
-def test_eval_fault_is_not_correct(tiny_cell, monkeypatch, fault):
+EVAL_FAULTS = [eval_altered, eval_half_batch, eval_unchanged]
+
+
+@pytest.mark.parametrize("fault,name", on_each_eval(
+    EVAL_FAULTS, [f.__name__ for f in EVAL_FAULTS]))
+def test_eval_fault_is_not_correct(tiny_cell, monkeypatch, fault, name):
     monkeypatch.setattr(LM, "apply", fault(LM.apply))
-    out = run(tiny_cell(EVAL))
+    out = run(tiny_cell(name))
     assert not out.correct, out.checks
 
 
@@ -109,10 +120,11 @@ def test_serve_fault_is_not_correct(tiny_cell, monkeypatch, fault, method):
 
 
 # ---------------------------------------------------------------- controls
-@pytest.mark.parametrize("seed", [1, 2, 3])
-def test_eval_control_is_not_correct(tiny_cell, seed):
+@pytest.mark.parametrize("seed,name", on_each_eval([1, 2, 3],
+                                                   ["1", "2", "3"]))
+def test_eval_control_is_not_correct(tiny_cell, seed, name):
     """The program's own fp8_e4m3 path in place of bf16."""
-    out = run(tiny_cell(EVAL), control=True, seed=seed)
+    out = run(tiny_cell(name), control=True, seed=seed)
     assert out.extra["format"] == "fp8_e4m3"
     assert not out.correct, out.checks
 

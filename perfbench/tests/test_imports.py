@@ -55,7 +55,8 @@ import json, sys, time, torch
 sys.path.insert(0, 'perfbench/tests')
 from conftest import tiny
 from perfbench import harness
-for name in ('starcoder2-7b.emulated_eval', 'chatglm3-6b.serve_longprompt'):
+for w in json.load(open('BENCHMARK.json'))['workloads']:
+    name = w['name']
     cell = tiny(harness.resolve_cell(name))
     out = harness.execute(cell, 1, 0.2, True, torch.device('cpu'),
                           time.perf_counter())

@@ -52,6 +52,16 @@ class ArchConfig:
     experts_per_token: int = 0
     moe_d_ff: int = 0
     capacity_factor: float = 1.25
+    #: leading layers whose FFN is a dense MLP of width ``d_ff`` before the
+    #: MoE layers (DeepSeek's ``first_k_dense_replace``)
+    n_dense_layers: int = 0
+    #: the top-k routing weights renormalised to sum to 1 (else the
+    #: softmax's own), then times ``routed_scaling_factor``
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    #: every (token, pick) computed whatever an expert's load: no capacity,
+    #: so a token's output does not depend on the other tokens of the call
+    moe_dropless: bool = False
     # --- SSM ---
     ssm_state: int = 0
     ssm_conv: int = 4
@@ -70,6 +80,18 @@ class ArchConfig:
     window: int = 0  # sliding-window size (mixtral); 0 = full
     mlp_act: str = "swiglu"  # 'swiglu' | 'gelu'
     qkv_bias: bool = False
+    # --- multi-head latent attention (DeepSeek-V2); 0 => none ---
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # --- YaRN RoPE scaling (arXiv:2309.00071); factor 0 => none ---
+    yarn_factor: float = 0.0
+    yarn_original_max_len: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
     # --- modality frontend stub ---
     frontend: str = "none"  # 'none' | 'vision' | 'audio'
     n_prefix_tokens: int = 0  # precomputed patch/frame embeddings
@@ -97,8 +119,37 @@ class ArchConfig:
         """Sub-quadratic path exists (SSM / hybrid / sliding-window)."""
         return self.family in ("ssm", "hybrid") or self.window > 0
 
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    def _mla_counts(self) -> Tuple[int, int, int]:
+        """(one MLA block's projections, its norms (ln1, ln2, the latent's),
+        one MoE layer's router) for the MLA configs."""
+        d, H, r = self.d_model, self.n_heads, self.kv_lora_rank
+        nope, rope, v = (self.qk_nope_head_dim, self.qk_rope_head_dim,
+                         self.v_head_dim)
+        attn = d * H * (nope + rope) + d * (r + rope) \
+            + r * H * (nope + v) + H * v * d
+        return attn, 2 * d + r, d * self.n_experts
+
+    def _mla_params(self, experts: int) -> int:
+        """An MLA config's parameters with ``experts`` routed experts a MoE
+        layer (all of them, or the top-k a token passes through): the
+        embedding and an untied unembed, every block, the leading dense
+        MLPs and the final norm."""
+        d, L, nd = self.d_model, self.n_layers, self.n_dense_layers
+        attn, norms, router = self._mla_counts()
+        moe = (self.n_shared_experts + experts) * 3 * d * self.moe_d_ff \
+            + router
+        return 2 * self.vocab_size * d + L * (attn + norms) \
+            + nd * 3 * d * self.d_ff + (L - nd) * moe + d
+
     def param_count(self) -> int:
-        """Approximate parameter count (embeddings + blocks)."""
+        """Approximate parameter count (embeddings + blocks); an MLA config's
+        is exact (``_mla_params``)."""
+        if self.is_mla:
+            return self._mla_params(self.n_experts)
         d, L = self.d_model, self.n_layers
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         per_layer = 0
@@ -139,6 +190,8 @@ class ArchConfig:
         """Parameters touched per token (MoE: shared + top-k routed)."""
         if self.family != "moe":
             return self.param_count()
+        if self.is_mla:
+            return self._mla_params(self.experts_per_token)
         d, L = self.d_model, self.n_layers
         total = self.vocab_size * d * 2
         hd = self.head_dim
@@ -200,9 +253,9 @@ def get_config(name: str) -> ArchConfig:
 
 
 def all_configs() -> Dict[str, ArchConfig]:
-    for a in ARCH_IDS:
-        get_config(a)
-    return dict(_REGISTRY)
+    """The configs of ``ARCH_IDS`` (a config registered outside it, such
+    as deepseek-v2-lite, is reached by ``get_config`` alone)."""
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 def cells(arch: str) -> Tuple[str, ...]:

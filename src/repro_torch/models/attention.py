@@ -12,6 +12,7 @@ the JAX code's ``preferred_element_type=float32`` does.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,15 +25,16 @@ def _f32(t):
 
 
 def _blocks(q, k, v, block_q: int, block_k: int):
-    """q, k, v padded to whole blocks: qb (B, nq, bq, Hkv, G, D), kb and vb
-    (B, nk, bk, Hkv, D), and (bq, bk)."""
+    """q, k, v padded to whole blocks: qb (B, nq, bq, Hkv, G, D), kb (B, nk,
+    bk, Hkv, D) and vb (B, nk, bk, Hkv, Dv), and (bq, bk); v's width Dv may
+    differ from q's and k's D."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     bq, bk = min(block_q, Sq), min(block_k, Sk)
     pq, pk = (-Sq) % bq, (-Sk) % bk
     qb = F.pad(q, (0, 0, 0, 0, 0, pq)).reshape(B, -1, bq, Hkv, Hq // Hkv, D)
     kb = F.pad(k, (0, 0, 0, 0, 0, pk)).reshape(B, -1, bk, Hkv, D)
-    vb = F.pad(v, (0, 0, 0, 0, 0, pk)).reshape(B, -1, bk, Hkv, D)
+    vb = F.pad(v, (0, 0, 0, 0, 0, pk)).reshape(B, -1, bk, Hkv, v.shape[-1])
     return qb, kb, vb, bq, bk
 
 
@@ -57,7 +59,7 @@ def flash_blocks(qb, kb, vb, *, scale: float, causal: bool, window: int,
                  kv_len: int, q_offset: int, triangle_skip: bool = False,
                  with_lse: bool = False):
     """The online-softmax forward over blocked operands (``_blocks``).
-    Returns the f32 output blocks (B, nq, Hkv, G, bq, D) and, with
+    Returns the f32 output blocks (B, nq, Hkv, G, bq, Dv) and, with
     ``with_lse``, each row's log-sum-exp (B, nq, Hkv, G, bq): ``NEG_INF``
     where a row attends nothing (the JAX ``flash_vjp._fwd_scan``)."""
     B, nq, bq, Hkv, G, D = qb.shape
@@ -69,7 +71,7 @@ def flash_blocks(qb, kb, vb, *, scale: float, causal: bool, window: int,
         q_pos = q_offset + qi * bq + torch.arange(bq, device=dev)
         m = torch.full((B, Hkv, G, bq), NEG_INF, device=dev)
         l = torch.zeros((B, Hkv, G, bq), device=dev)
-        acc = torch.zeros((B, Hkv, G, bq, D), device=dev)
+        acc = torch.zeros((B, Hkv, G, bq, vb.shape[-1]), device=dev)
         n_kv = kv_extent(qi, bq, bk, nk, q_offset) \
             if triangle_skip and causal and nq > 1 else nk
         for kj in range(n_kv):
@@ -108,10 +110,12 @@ def unblock(out_blocks, Sq: int, dtype):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, kv_len=None, block_q: int = 1024,
-                    block_k: int = 1024, triangle_skip: bool = False):
-    """q: (B,Sq,Hq,D); k,v: (B,Sk,Hkv,D) -> (B,Sq,Hq,D).
+                    block_k: int = 1024, triangle_skip: bool = False,
+                    scale: Optional[float] = None):
+    """q: (B,Sq,Hq,D); k: (B,Sk,Hkv,D); v: (B,Sk,Hkv,Dv) -> (B,Sq,Hq,Dv).
 
-    q_offset: absolute position of q[0]; kv_len: valid KV length (<= Sk).
+    q_offset: absolute position of q[0]; kv_len: valid KV length (<= Sk);
+    scale: the scores' factor (default D^-1/2).
     triangle_skip (causal): q block i visits only the kv blocks that start
     at or before its last query, a static per-block extent (the JAX
     ``attention.flash_attention``'s): the blocks it skips are fully
@@ -119,7 +123,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Sq, D = q.shape[1], q.shape[3]
     kv_len = k.shape[1] if kv_len is None else kv_len
     qb, kb, vb, _, _ = _blocks(q, k, v, block_q, block_k)
-    out = flash_blocks(qb, kb, vb, scale=1.0 / math.sqrt(D), causal=causal,
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    out = flash_blocks(qb, kb, vb, scale=scale, causal=causal,
                        window=window, kv_len=kv_len, q_offset=q_offset,
                        triangle_skip=triangle_skip)
     return unblock(out, Sq, q.dtype)
@@ -153,15 +158,17 @@ def chunk_attention(q, k, v, q_pos, k_pos, k_valid, *, window: int = 0):
     return out.to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                     scale: Optional[float] = None):
     """Single-step attention against a cache.
 
-    q: (B,1,Hq,D); caches: (B,Smax,Hkv,D); cache_len: (B,) valid length
-    (the new token's K/V already written at cache_len-1)."""
+    q: (B,1,Hq,D); caches: (B,Smax,Hkv,D) and (B,Smax,Hkv,Dv) -> (B,1,Hq,Dv);
+    cache_len: (B,) valid length (the new token's K/V already written at
+    cache_len-1); scale: the scores' factor (default D^-1/2)."""
     B, Smax, Hkv, D = k_cache.shape
     Hq = q.shape[2]
     G = Hq // Hkv
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     qg = _f32(q.reshape(B, Hkv, G, D))
     kc = _f32(k_cache.to(q.dtype))  # fp8 caches cast up first
     s = torch.einsum("bhgd,bkhd->bhgk", qg, kc) * scale
@@ -174,4 +181,4 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
     p = torch.softmax(s, dim=-1)
     vc = _f32(v_cache.to(q.dtype))
     out = torch.einsum("bhgk,bkhd->bhgd", _f32(p.to(q.dtype)), vc)
-    return out.reshape(B, 1, Hq, D).to(q.dtype)
+    return out.reshape(B, 1, Hq, v_cache.shape[-1]).to(q.dtype)

@@ -8,6 +8,8 @@ operands (``preferred_element_type``), the port widens the operands first.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -67,6 +69,50 @@ def apply_rope(x, positions, theta: float = 10000.0, style: str = "full"):
     if rot < d:
         out = torch.cat([out, x_pass], dim=-1)
     return out
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 * mscale * ln(factor) + 1`` (1 for a
+    factor of at most 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_frequencies(dim: int, theta: float, factor: float,
+                     original_max_len: int, beta_fast: float,
+                     beta_slow: float, device):
+    """YaRN's inv_freq over ``dim`` rotated dims (arXiv:2309.00071, as
+    DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding`` computes it): pair i
+    keeps f_i = theta^(-2i/dim) up to the ramp's low end, takes f_i /
+    ``factor`` from its high end on, and blends the two linearly between.
+    The ends are the pairs that turn ``beta_fast`` and ``beta_slow`` times
+    over ``original_max_len`` positions (floor and ceil)."""
+    def pair(turns):
+        return dim * math.log(original_max_len / (turns * 2 * math.pi)) \
+            / (2 * math.log(theta))
+
+    lo = max(math.floor(pair(beta_fast)), 0)
+    hi = min(math.ceil(pair(beta_slow)), dim - 1)
+    if lo == hi:
+        hi += 0.001
+    f = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                      device=device) / dim))
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - lo)
+            / (hi - lo)).clamp(0, 1)
+    return f / factor * ramp + f * (1 - ramp)
+
+
+def apply_rope_pairs(x, positions, inv_freq, mscale: float = 1.0):
+    """x: (..., S, H, D): dims (2i, 2i+1) rotated at ``inv_freq[i]``, cos
+    and sin times ``mscale`` (DeepSeek-V2's RoPE: its code de-interleaves
+    the dims and rotates halves, the same map up to where the outputs
+    sit)."""
+    ang = positions[..., None].to(torch.float32) * inv_freq
+    cos = (torch.cos(ang) * mscale)[..., None, :]
+    sin = (torch.sin(ang) * mscale)[..., None, :]
+    xf = x.to(torch.float32).unflatten(-1, (-1, 2))
+    x1, x2 = xf[..., 0], xf[..., 1]
+    return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                       dim=-1).flatten(-2).to(x.dtype)
 
 
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str, dtype, *,

@@ -6,7 +6,9 @@ Families:
            in front of the tokens (internvl2; the vision tower is a stub)
   audio  : dense over precomputed frame embeddings (``frame_embeds``) in
            place of the token embedding (musicgen; the codec is a stub)
-  moe    : L x [GQA attention + MoE]   (deepseek-moe, mixtral)
+  moe    : L x [GQA attention + MoE]   (deepseek-moe, mixtral), or
+           [MLA + MLP] x n_dense_layers, then [MLA + MoE] (deepseek-v2-lite;
+           multi-head latent attention, ``models.mla``)
   ssm    : L x [Mamba-1]               (attention-free; falcon-mamba)
   hybrid : L x [Mamba-2] + one *shared* attention+MLP block applied after
            every ``shared_attn_every`` layers (zamba2)
@@ -35,7 +37,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import (chunk_attention, decode_attention,
                                           flash_attention)
 from repro_torch.models.flash_vjp import flash_attention_trainable
-from repro_torch.models import ssm
+from repro_torch.models import mla, ssm
 from repro_torch.models.layers import (apply_rope, dense_init, embed_apply,
                                        embed_init, mlp_apply, mlp_init,
                                        rmsnorm, rmsnorm_init, unembed_apply)
@@ -180,11 +182,18 @@ def _emulates(policy) -> bool:
 # Attention transformer block (dense / moe; the hybrid's shared block)
 # ---------------------------------------------------------------------------
 def attn_block_init(gen: torch.Generator, cfg: ArchConfig, dtype,
-                    n: Optional[int]):
+                    n: Optional[int], ffn: Optional[str] = None):
     """``n`` stacked blocks' parameters (leading axis = layer), or one
-    block's with ``n=None``."""
+    block's with ``n=None``; ``ffn`` 'moe' or 'mlp' (default: 'moe' for
+    the moe family).  An MLA config's attention is ``mla.mla_init``'s."""
     d, hd, dev = cfg.d_model, cfg.head_dim, gen.device
     lead = () if n is None else (n,)
+    ffn = ffn or ("moe" if cfg.family == "moe" else "mlp")
+    if cfg.is_mla:
+        p = {"ln1": rmsnorm_init(d, dtype, dev, lead=lead),
+             **mla.mla_init(gen, cfg, dtype, lead=lead),
+             "ln2": rmsnorm_init(d, dtype, dev, lead=lead)}
+        return _ffn_init(p, gen, cfg, dtype, lead, ffn)
     p = {
         "ln1": rmsnorm_init(d, dtype, dev, lead=lead),
         "wq": dense_init(gen, d, cfg.n_heads * hd, dtype, lead=lead),
@@ -198,13 +207,18 @@ def attn_block_init(gen: torch.Generator, cfg: ArchConfig, dtype,
                             ("bk", cfg.n_kv_heads * hd),
                             ("bv", cfg.n_kv_heads * hd)):
             p[name] = torch.zeros(lead + (width,), dtype=dtype, device=dev)
-    if cfg.family == "moe":
-        p["moe"] = moe_init(gen, d, n_experts=cfg.n_experts,
+    return _ffn_init(p, gen, cfg, dtype, lead, ffn)
+
+
+def _ffn_init(p, gen, cfg: ArchConfig, dtype, lead, ffn: str):
+    if ffn == "moe":
+        p["moe"] = moe_init(gen, cfg.d_model, n_experts=cfg.n_experts,
                             moe_d_ff=cfg.moe_d_ff,
                             n_shared=cfg.n_shared_experts, dtype=dtype,
                             lead=lead)
     else:
-        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype, lead=lead)
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
+                            lead=lead)
     return p
 
 
@@ -243,13 +257,16 @@ def _qkv(p, h, cfg: ArchConfig, positions, policy):
 
 
 def _ffn(p, h2, cfg: ArchConfig, policy):
-    """The MLP, or for the moe family the MoE (which no policy reaches:
-    the JAX ``_ffn`` passes none to ``moe_apply``): under a mesh with a
-    'data' axis of more than one rank, the expert-parallel dispatch of
-    ``moe_sharded``, and under any other mesh the single-program one on
-    every rank.  Returns (out, aux)."""
-    if cfg.family == "moe":
+    """The MLP, or in a block with experts the MoE (which no policy
+    reaches: the JAX ``_ffn`` passes none to ``moe_apply``): under a mesh
+    with a 'data' axis of more than one rank, the expert-parallel dispatch
+    of ``moe_sharded``, and under any other mesh the single-program one on
+    every rank; a dropless config runs under no mesh.  Returns (out,
+    aux)."""
+    if "moe" in p:
         ctx = sh.active()
+        if ctx is not None and cfg.moe_dropless:
+            raise NotImplementedError("the dropless MoE runs under no mesh")
         if ctx is not None:
             from repro_torch.models import moe_sharded
             if ctx.axes.get("data", 1) > 1:
@@ -260,7 +277,10 @@ def _ffn(p, h2, cfg: ArchConfig, policy):
                 p["moe"], h2, top_k=cfg.experts_per_token,
                 capacity_factor=cfg.capacity_factor)
         return moe_apply(p["moe"], h2, top_k=cfg.experts_per_token,
-                         capacity_factor=cfg.capacity_factor)
+                         capacity_factor=cfg.capacity_factor,
+                         norm_topk=cfg.norm_topk_prob,
+                         scaling=cfg.routed_scaling_factor,
+                         dropless=cfg.moe_dropless)
     # under a mesh, the MLP's input gathered over the model axis (Megatron's
     # layout, which GSPMD picks): DTensor's own choice after a
     # sequence-sharded residual can replicate the whole MLP over 'model'
@@ -340,9 +360,15 @@ def _attend(q, k, v, cfg: ArchConfig, triangle_skip: bool):
 
 def attn_block_apply(p, x, positions, cfg: ArchConfig, *, policy=None,
                      triangle_skip: bool = False):
-    """Full-sequence block.  Returns (out, aux, (k, v)); ``_attend`` says
-    which attention runs."""
+    """Full-sequence block.  Returns (out, aux, (k, v)), or for an MLA
+    config (out, aux, (latent,)); ``_attend`` says which attention runs
+    (``mla.prefill`` for MLA)."""
     h = rmsnorm(p["ln1"], x)
+    if cfg.is_mla:
+        attn, latent = mla.prefill(p, h, positions, cfg, policy=policy,
+                                   triangle_skip=triangle_skip)
+        out, aux = _residual_ffn(p, x, attn, cfg, policy)
+        return out, aux, (latent,)
     q, k, v = _qkv(p, h, cfg, positions, policy)
     # TP over heads: when Hkv doesn't divide the model axis but Hq does,
     # repeat KV to full heads so attention shards over the model axis
@@ -373,6 +399,13 @@ def attn_block_decode(p, x, k_cache, v_cache, cache_len, cfg: ArchConfig, *,
     B = x.shape[0]
     Smax = k_cache.shape[1]
     h = rmsnorm(p["ln1"], x)
+    if cfg.is_mla:  # k_cache: the latent cache; v_cache unused
+        keep = cache_len < Smax
+        if write_mask is not None:
+            keep = keep & write_mask
+        attn = mla.decode(p, h, k_cache, cache_len, cfg, keep=keep,
+                          policy=policy)
+        return _residual_ffn(p, x, attn, cfg, policy)[0]
     q, k, v = _qkv(p, h, cfg, cache_len[:, None], policy)
     if ring:
         idx = cache_len % Smax
@@ -750,7 +783,8 @@ def ssm_block_apply(p, x, cfg: ArchConfig, state=None,
 @dataclasses.dataclass
 class DecodeCache:
     """Decode state: ``data`` {"k", "v"} of shape (L, B, Smax, Hkv, D)
-    (dense, moe; Smax = min(max_len, window) with a window), {"conv" (L, B,
+    (dense, moe; Smax = min(max_len, window) with a window), {"latent"} of
+    shape (L, B, Smax, r + R) (MLA), {"conv" (L, B,
     K-1, C), "h" (L, B, ...)} (ssm), or both (hybrid, with k/v of shape
     (n_shared_applications, B, max_len, Hkv, D)), and ``length``, a 0-d
     (single sequence) or (B,) per-slot int64 tensor."""
@@ -776,6 +810,10 @@ class LM:
     def __init__(self, cfg: ArchConfig, device=None):
         if cfg.family not in _ATTN_FAMILIES + ("ssm", "hybrid"):
             raise ValueError(cfg.family)
+        if cfg.is_mla and (cfg.family not in ("dense", "moe")
+                           or cfg.window):
+            raise ValueError("MLA runs in the dense and moe families, with "
+                             "no window")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.vocab_padded = _pad_vocab(cfg.vocab_size)
@@ -800,8 +838,12 @@ class LM:
         params = {
             "embed": embed_init(gen, self.vocab_padded, cfg.d_model, dtype),
             "final_norm": rmsnorm_init(cfg.d_model, dtype, self.device),
-            "layers": block_init(gen, cfg, dtype, cfg.n_layers),
+            "layers": block_init(gen, cfg, dtype,
+                                 cfg.n_layers - cfg.n_dense_layers),
         }
+        if cfg.n_dense_layers:
+            params["dense_layers"] = attn_block_init(
+                gen, cfg, dtype, cfg.n_dense_layers, ffn="mlp")
         if cfg.family == "hybrid":
             params["shared_attn"] = attn_block_init(gen, cfg, dtype, None)
         return params
@@ -825,6 +867,22 @@ class LM:
     @property
     def n_shared_applications(self) -> int:
         return sum(1 for _, _, s in self._segments() if s)
+
+    def _attn_stack(self, params):
+        """The attention families' layers in order, as (stacked tree, its
+        layer count): the leading dense layers (``dense_layers``, whose
+        FFN is an MLP), then ``layers``."""
+        cfg = self.cfg
+        out = [(params["layers"], cfg.n_layers - cfg.n_dense_layers)]
+        if cfg.n_dense_layers:
+            out.insert(0, (params["dense_layers"], cfg.n_dense_layers))
+        return out
+
+    @property
+    def kv_names(self):
+        """The attention cache's leaves: ("latent",) for MLA, else ("k",
+        "v")."""
+        return ("latent",) if self.cfg.is_mla else ("k", "v")
 
     # ------------------------------------------------------- forward -------
     def _embed_inputs(self, params, tokens, prefix_embeds, frame_embeds):
@@ -924,14 +982,15 @@ class LM:
                 return attn_block_apply(lp, x, positions, cfg, policy=policy,
                                         triangle_skip=triangle_skip)
 
-            for lp in _unstack(params["layers"], 0, cfg.n_layers):
-                x, a, (k, v) = _remat(block, lp, x, on=remat)
-                aux = aux + a["aux_loss"]
-                if "dropped_frac" in a:
-                    dropped.append(a["dropped_frac"])
-                if collect_kv:
-                    ks.append(k)
-                    vs.append(v)
+            for tree, n in self._attn_stack(params):
+                for lp in _unstack(tree, 0, n):
+                    x, a, kv = _remat(block, lp, x, on=remat)
+                    aux = aux + a["aux_loss"]
+                    if "dropped_frac" in a:
+                        dropped.append(a["dropped_frac"])
+                    if collect_kv:
+                        ks.append(kv[0])
+                        vs.extend(kv[1:])
         elif cfg.family == "ssm":
             x, states = self._ssm_stack(params["layers"], x,
                                         collect=collect_states)
@@ -955,8 +1014,9 @@ class LM:
                 states = (torch.cat(convs), torch.cat(hs))
         kv = None
         if ks:
-            kv = (torch.stack([to_cache(k, self.cache_dtype) for k in ks]),
-                  torch.stack([to_cache(v, self.cache_dtype) for v in vs]))
+            kv = tuple(torch.stack([to_cache(t, self.cache_dtype)
+                                    for t in part]) for part in (ks, vs)
+                       if part)
         aux = {"aux_loss": aux}
         if dropped:
             aux["dropped_frac"] = torch.stack(dropped)
@@ -1069,8 +1129,9 @@ class LM:
             n = cfg.n_layers if cfg.family in _ATTN_FAMILIES \
                 else self.n_shared_applications
             smax = min(max_len, cfg.window) if self.ring else max_len
-            shp = (n, batch, smax, cfg.n_kv_heads, cfg.head_dim)
-            for name in ("k", "v"):
+            shp = (n, batch, smax) + ((mla.latent_width(cfg),) if cfg.is_mla
+                                      else (cfg.n_kv_heads, cfg.head_dim))
+            for name in self.kv_names:
                 data[name] = torch.zeros(shp, dtype=self.cache_dtype,
                                          device=dev)
         return DecodeCache(data, torch.zeros((), dtype=torch.int64,
@@ -1115,11 +1176,15 @@ class LM:
         lens = clen.expand(B) if clen.dim() == 0 else clen
         data = cache.data
         if cfg.family in _ATTN_FAMILIES:
-            for i in range(cfg.n_layers):
-                x = attn_block_decode(_layer(params["layers"], i), x,
-                                      data["k"][i], data["v"][i], lens, cfg,
-                                      ring=self.ring, policy=policy,
-                                      write_mask=write_mask)
+            caches = [data[name] for name in self.kv_names]
+            i = 0
+            for tree, n in self._attn_stack(params):
+                for j in range(n):
+                    x = attn_block_decode(_layer(tree, j), x, caches[0][i],
+                                          caches[-1][i], lens, cfg,
+                                          ring=self.ring, policy=policy,
+                                          write_mask=write_mask)
+                    i += 1
         else:
             app = 0
             for s, e, shared in self._segments():
@@ -1185,8 +1250,8 @@ class LM:
         # them, not written in place into the plain zeros
         meshed = sh.active() is not None
         if kv is not None:
-            smax = data["k"].shape[2]
-            for name, t in zip(("k", "v"), kv):
+            smax = data[self.kv_names[0]].shape[2]
+            for name, t in zip(self.kv_names, kv):
                 if smax >= S and meshed:
                     data[name] = torch.cat([t, data[name][:, :, S:]], dim=2)
                 elif smax >= S:
@@ -1209,7 +1274,8 @@ class LM:
 
         tokens: (M, Lb) right-padded to one bucket length; true_lens: (M,).
         Returns ``(last_logits (M, V), kv or None, states or None)``: k, v
-        of shape (L or n_shared_applications, M, Lb, Hkv, D) and the ssm
+        of shape (L or n_shared_applications, M, Lb, Hkv, D) (MLA: the
+        1-tuple of the latent, (L, M, Lb, r + R)) and the ssm
         and hybrid families' (conv, h).  Right-padding is exact for causal
         attention: a pad never enters a valid position's context.  SSM
         state carries run through pads, so those families must be called
@@ -1259,6 +1325,9 @@ class LM:
                        slot_ids, policy):
         _refuse_plain_cache(cache, "prefill_chunk")
         cfg, dev = self.cfg, self.device
+        if cfg.is_mla or cfg.n_dense_layers:
+            raise NotImplementedError("prefill_chunk has no MLA or leading "
+                                      "dense layer path")
         x = shard(_embed(params["embed"], tokens), "batch", None, None)
         M, Cb = tokens.shape
         offsets = torch.as_tensor(offsets, dtype=torch.int64, device=dev)

@@ -207,8 +207,9 @@ class BatchedServer:
         cache = model.init_cache(slots, max_len)
         # a KV cache caps the per-slot length; a ring (sliding-window)
         # cache wraps and ssm states do not grow, so neither caps it
-        self._len_cap = cache.data["k"].shape[2] \
-            if "k" in cache.data and not model.ring else None
+        kv0 = cache.data.get("latent", cache.data.get("k"))
+        self._len_cap = kv0.shape[2] \
+            if kv0 is not None and not model.ring else None
         # device-resident slot state
         self.cache = DecodeCache(cache.data, torch.zeros(
             slots, dtype=torch.int64, device=dev))
@@ -818,7 +819,11 @@ class BatchedServer:
 
     def _write_kv(self, data, ids, kv, true_lens: np.ndarray,
                   bucket: int) -> None:
-        """Scatter a batch's prefill K/V into its cache lanes."""
+        """Scatter a batch's prefill K/V (an MLA model's latent) into its
+        cache lanes."""
+        if "latent" in data:  # MLA: no window, so never a ring
+            data["latent"][:, ids, :bucket] = kv[0]
+            return
         smax = data["k"].shape[2]
         if bucket <= smax:
             data["k"][:, ids, :bucket] = kv[0]

@@ -245,7 +245,12 @@ class Scope:
 
     def resolve(self) -> None:
         """Read the device time from the two events, waiting for the end
-        event (never called inside the scope)."""
+        event, and each attribute given as a 0-d tensor (a count the
+        device computed, set without a host sync) as its number (never
+        called inside the scope)."""
+        for k, v in self.attrs.items():
+            if getattr(v, "ndim", None) == 0:
+                self.attrs[k] = v.item()
         if self._events is None or self.end_ns is None:
             return
         start, end, _ = self._events

@@ -16,9 +16,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
   1. the card, the torch/CUDA versions, and the build of every kernel from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel), with
-     ``ptxas`` registers and spills of the K1/K3, K4 and K5/K6 kernels (a
-     spill in any of K1/K3's eight tiled, K4's six or K5/K6's four vector
-     instantiations fails the run);
+     ``ptxas`` registers and spills of the K1/K3, K4, K5/K6 and tensor-core
+     attention kernels (a spill in any of K1/K3's eight tiled, K4's six,
+     K5/K6's four vector or the attention's eight instantiations fails the
+     run);
   2. every kernel against its plain PyTorch version on the card: K2
      (quantize) bitwise on 4M elements with specials and f32 subnormals, K1
      (fused_qmm) and K3 (fma_emu) exactly equal to their plain versions on
@@ -45,6 +46,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      with f32 subnormals, +-0, +-inf and NaN planted, and on bf16 operands,
      with three controls the check must catch (fp8 without rounding p,
      scaled=False where a tile's max lies above 240, the window ignored);
+     the tensor-core attention (flash_attention_tc) against its plain
+     version ``attention_blocks`` within ``agreement_bound`` at the
+     benchmark cells' shapes (starcoder2-7b 2 x 2048, 36/4 heads of 128;
+     chatglm3-6b 4096, 32/2; DeepSeek-V2-Lite 4096, 16/16 heads of 192/128
+     with v a strided view and its YaRN scale) and on ragged, offset,
+     kv_len, windowed and fp16 operands, with a control the check must
+     catch (a scale 1% off); then its times at those shapes beside its bound
+     (the admitted pairs' two products at 989 TFLOP/s), the plain version's
+     and ``scaled_dot_product_attention``'s on the same bf16 operands (a
+     yardstick the port never calls); every path below counts its launches,
+     and the dense configs' no-grad forwards launch it once a layer;
   3. the dense path at the full width of tinyllama-1.1b, launch counters
      set to 0 just before: ``BatchedServer`` answers 8 requests (native bf16
      matmuls; every token of every request, and of ``greedy_decode``'s
@@ -344,7 +356,9 @@ is the kernel table ``{"kernels": [...]}``, the last
 """
 import contextlib
 import gc
+import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -410,6 +424,24 @@ FLASH_SPECS = ((("flash", "bf16", (2, 32, 2048, 64)), {}),
 LIBRARY_K1 = "torch.matmul(a.float(), b.float()), TF32 off"
 LIBRARY_K4 = ("torch.nn.functional.scaled_dot_product_attention on f32 "
               "(B, H, S, D) views, is_causal=True, enable_gqa=True, TF32 off")
+LIBRARY_TC = ("torch.nn.functional.scaled_dot_product_attention on the same "
+              "bf16 operands as (B, H, S, D) views, is_causal=True, "
+              "enable_gqa=True, the same scale")
+# the tensor-core attention at the benchmark cells' shapes, causal squares:
+# (label, B, S, Hq, Hkv, D, Dv, scale or None for D^-1/2)
+ATTN_TC_SHAPES = (("starcoder2-7b eval", 2, 2048, 36, 4, 128, 128, None),
+                  ("chatglm3-6b prefill", 1, 4096, 32, 2, 128, 128, None),
+                  ("deepseek-v2-lite prefill", 1, 4096, 16, 16, 192, 128,
+                   "yarn"))
+# and on masked, ragged and fp16 operands: (B, Sq, Sk, Hq, Hkv, D, Dv,
+# dtype, keywords)
+ATTN_TC_EDGES = ((2, 300, 300, 8, 2, 64, 64, "bfloat16", {}),
+                 (1, 77, 333, 8, 8, 128, 128, "bfloat16",
+                  dict(q_offset=256)),
+                 (2, 200, 256, 4, 1, 128, 128, "bfloat16",
+                  dict(causal=False, kv_len=150)),
+                 (1, 500, 500, 6, 3, 64, 64, "bfloat16", dict(window=100)),
+                 (2, 384, 384, 8, 8, 128, 128, "float16", {}))
 NO_LIBRARY_CALL = ("none: no single PyTorch call rounds partial sums on the "
                    "128-deep k-block schedule (cascade style)")
 NO_LIBRARY_SCAN = ("none: no single PyTorch call computes a selective scan "
@@ -572,9 +604,14 @@ def card_and_build():
                  "flash_attn": ("flash_kernel", 6, "K4",
                                 "D 16/64/128 x f32/bf16"),
                  "ssm_scan": ("ssm_scan_lanes_kernel", 4, "K5/K6",
-                              "N 8/16 x rounding off/on")}
+                              "N 8/16 x rounding off/on"),
+                 "attention_tc": ("attention_tc_kernel", 8,
+                                  "tensor-core attention",
+                                  "(D, Dv) 64/64, 128/128, 192/128, 256/256 "
+                                  "x bf16/fp16")}
     for name, source in (("qmm", "qmm.cu"), ("flash_attn", "flash_attn.cu"),
-                         ("ssm_scan", "ssm_scan.cu")):
+                         ("ssm_scan", "ssm_scan.cu"),
+                         ("attention_tc", "attention_tc.cu")):
         log = _build._lib_path(name).with_suffix(".log")
         check(log.exists() or name not in no_spills,
               f"no ptxas log at {log}: {source}'s spills cannot be checked")
@@ -1078,6 +1115,134 @@ def check_flash_kernels(dev):
           "max_abs_err": err, "controls_entries_differing": controls,
           "control_entries": int(q.numel())})
     return {"fused_flash_attention": err}
+
+
+def attn_tc_operands(B, Sq, Sk, Hq, Hkv, D, Dv, dtype, dev, seed):
+    """Seeded normal q (B, Sq, Hq, D), k (B, Sk, Hkv, D) and v (B, Sk, Hkv,
+    Dv) in ``dtype`` on ``dev``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn(B, S, H, W, generator=g).to(dtype).to(dev)
+                 for S, H, W in ((Sq, Hq, D), (Sk, Hkv, D), (Sk, Hkv, Dv)))
+
+
+def attn_tc_scale(scale, D):
+    from repro_torch.configs.deepseek_v2_lite import CONFIG
+    from repro_torch.models.mla import softmax_scale
+    return softmax_scale(CONFIG) if scale == "yarn" else 1.0 / math.sqrt(D)
+
+
+def attn_tc_shapes(dev):
+    """The benchmark cells' shapes and the edge cases, as (label, q, k, v,
+    keywords); DeepSeek-V2-Lite's v is the strided view ``kv[..., 128:]``,
+    as its prefill passes it."""
+    for i, (label, B, S, Hq, Hkv, D, Dv, scale) in enumerate(ATTN_TC_SHAPES):
+        wide = Dv + 128 if scale == "yarn" else Dv
+        q, k, v = attn_tc_operands(B, S, S, Hq, Hkv, D, wide, torch.bfloat16,
+                                   dev, SEED + i)
+        yield label, q, k, v[..., wide - Dv:], dict(
+            scale=attn_tc_scale(scale, D))
+    for i, (B, Sq, Sk, Hq, Hkv, D, Dv, dt, kw) in enumerate(ATTN_TC_EDGES):
+        q, k, v = attn_tc_operands(B, Sq, Sk, Hq, Hkv, D, Dv,
+                                   getattr(torch, dt), dev, SEED + 10 + i)
+        yield f"{dt} {(B, Sq, Sk, Hq, Hkv, D, Dv)} {kw}", q, k, v, dict(
+            kw, scale=1.0 / math.sqrt(D))
+
+
+def attn_tc_vs_plain(q, k, v, kw, scale_by=1.0):
+    """The kernel (its scale times ``scale_by``) against the plain version:
+    (max |err|, max err / ``agreement_bound``)."""
+    from repro_torch.kernels.attention_tc import (agreement_bound,
+                                                  flash_attention_tc)
+    from repro_torch.models.attention import attention_blocks
+    kw = dict(dict(causal=True, window=0, q_offset=0, kv_len=k.shape[1]),
+              **kw)
+    with torch.no_grad():
+        got = flash_attention_tc(q, k, v, **dict(kw,
+                                                 scale=kw["scale"] * scale_by))
+        want = attention_blocks(q, k, v, **kw)
+        a_mean = attention_blocks(q.float(), k.float(), v.float().abs(),
+                                  **kw)
+    err = (got.float() - want.float()).abs()
+    tol = agreement_bound(got, want, a_mean, k.shape[1])
+    return float(err.max()), float((err / tol).max())
+
+
+def check_attention_tc(dev):
+    """The tensor-core attention within ``agreement_bound`` of its plain
+    version at the cells' shapes and the edge cases, and a control the
+    check must catch: the scale 1% off."""
+    cases = []
+    for label, q, k, v, kw in attn_tc_shapes(dev):
+        err, share = attn_tc_vs_plain(q, k, v, kw)
+        check(share <= 1.0, f"tensor-core attention {label}: {err} is "
+              f"{share:.3g} of the stated bound")
+        cases.append({"case": label, "max_abs_err": err,
+                      "max_share_of_bound": share})
+        del q, k, v
+    q, k, v = attn_tc_operands(2, 300, 300, 8, 2, 64, 64, torch.bfloat16,
+                               dev, SEED + 20)
+    _, control = attn_tc_vs_plain(q, k, v, dict(scale=0.125), scale_by=1.01)
+    check(control > 1.0, f"tensor-core attention: a scale 1% off stays "
+          f"within the bound ({control:.3g} of it)")
+    emit({"phase": "check", "kernel": "flash_attention_tc", "cases": cases,
+          "tolerance": "attention_tc.agreement_bound: 2 u A + 2^-16 A + one "
+                       "ulp of the output's type (A the row's "
+                       "softmax-weighted mean of |v|)",
+          "control_scale_1pct_share_of_bound": control})
+    return {"flash_attention_tc": max(c["max_abs_err"] for c in cases)}
+
+
+def time_attention_tc(dev, errs):
+    """The tensor-core attention at the cells' shapes: median of 10
+    launches with the L2 flushed, beside its bound (the admitted pairs' two
+    products at the bf16 peak), the plain version's time (3 runs) and
+    ``scaled_dot_product_attention``'s on the same operands.  Returns one
+    kernel row a shape."""
+    import torch.nn.functional as TF
+    from repro_torch.kernels.attention_tc import flash_attention_tc
+    from repro_torch.models.attention import attention_blocks
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    rows = []
+    for label, q, k, v, kw in itertools.islice(attn_tc_shapes(dev),
+                                               len(ATTN_TC_SHAPES)):
+        B, S, Hq, D = q.shape
+        Hkv, Dv = k.shape[2], v.shape[3]
+        sc = kw["scale"]
+        with torch.no_grad():
+            ms = time_ms(lambda: flash_attention_tc(q, k, v, scale=sc), flush)
+            plain = time_ms(lambda: attention_blocks(
+                q, k, v, scale=sc, causal=True, window=0, q_offset=0,
+                kv_len=S), flush, reps=3, warm=1)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library = time_ms(lambda: TF.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True),
+                flush)
+        pairs = S * (S + 1) / 2
+        operations = 2.0 * B * Hq * pairs * (D + Dv)
+        byts = 2 * (B * S * Hq * (D + Dv) + B * S * Hkv * (D + Dv))
+        bound = bound_of(1e3 * byts / HBM_BYTES_PER_S,
+                         1e3 * operations / PEAK_OPS_PER_S["bf16"])
+        emit({"phase": "times", "kernel": "flash_attention_tc",
+              "case": label, "q": list(q.shape), "k": list(k.shape),
+              "v": list(v.shape), "unit": "ms per launch, median of 10, L2 "
+              "flushed; plain median of 3", "ms": ms, "plain_ms": plain,
+              "library_ms": library, "bound_ms": bound[0],
+              "bound_by": bound[1], "operations": operations,
+              "tflops": operations / ms / 1e9,
+              "share_of_bound": bound[0] / ms})
+        rows.append(dict(name="flash_attention_tc", route="cuda",
+                         source="src/repro_torch/csrc/attention_tc.cu",
+                         replaces="none (models/attention.py::flash_blocks "
+                                  "on the no-grad path)",
+                         max_abs_err=errs["flash_attention_tc"], ms=ms,
+                         plain_ms=plain, bound_ms=bound[0],
+                         bound_by=bound[1], library_ms=library,
+                         library_call=LIBRARY_TC,
+                         work=f"{label}: q {list(q.shape)}, k "
+                              f"{list(k.shape)}, v {list(v.shape)} bf16, "
+                              "causal"))
+        del q, k, v
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4333,7 +4498,7 @@ def hybrid_path(dev, drive, rng):
     model, params = init_model(cfg, dev)
     per_fwd = 6 * model.n_shared_applications + 1
     mono = {}
-    drive(HYBRID_ARCH, ("fused_qmm",),
+    drive(HYBRID_ARCH, ("fused_qmm", "flash_attention_tc"),
           lambda: mono.update(serve_full_width(
               model, params, np.random.default_rng(SEED + 1),
               noise_floor=True, parting_on_decode=True)),
@@ -4573,7 +4738,7 @@ def moe_path(dev, drive, rng):
     nodrop = LM(nodrop_cfg, device=dev)
     per_fwd = 4 * cfg.n_layers + 1
     rec = {}
-    drive(MOE_ARCH, ("fused_qmm",),
+    drive(MOE_ARCH, ("fused_qmm", "flash_attention_tc"),
           lambda: rec.update(serve_full_width(
               nodrop, params, np.random.default_rng(SEED + 1))),
           lambda: rec.update(layer0=serve_with_drops(model, params, rec)),
@@ -4659,7 +4824,7 @@ def window_path(dev, drive, rng):
         "n_layers": [full.n_layers, WINDOW_LAYERS],
         "why": "32 layers of bf16 weights (~93 GB) exceed one H100's 80 GB"})
     per_fwd = 4 * WINDOW_LAYERS + 1
-    drive(f"{WINDOW_ARCH} window", ("fused_qmm",),
+    drive(f"{WINDOW_ARCH} window", ("fused_qmm", "flash_attention_tc"),
           lambda: serve_full_width(
               model, params, np.random.default_rng(SEED + 1),
               noise_floor=True, spec=WINDOW_SERVE, lens=WINDOW_LENS),
@@ -4797,7 +4962,7 @@ def vlm_path(dev, drive, rng):
         emit({"phase": "vlm_audio", "arch": cfg.name, "dtype": cfg.dtype,
               "input": "prefix_embeds", **rec})
 
-    drive(VLM_ARCH, ("fused_qmm",), check_embeds,
+    drive(VLM_ARCH, ("fused_qmm", "flash_attention_tc"), check_embeds,
           lambda: serve_full_width(model, params,
                                    np.random.default_rng(SEED + 1)),
           lambda: emulated_forwards(model, params, rng, per_fwd,
@@ -4875,7 +5040,7 @@ def audio_path(dev, drive, rng):
               "kv_cache_dtype": "float8_e4m3fn", "input": "frame_embeds",
               **rec})
 
-    drive(AUDIO_ARCH, ("fused_qmm",), bf16_embeds,
+    drive(AUDIO_ARCH, ("fused_qmm", "flash_attention_tc"), bf16_embeds,
           lambda: fp8_cache_vs_cpu(model, params, **inputs["kw"]),
           lambda: emulated_forwards(model, params, rng, per_fwd,
                                     embeds=True))
@@ -4907,6 +5072,23 @@ DENSE_BLOCK = dict(batch=2, prompt=64)
 BLOCK_VS_CPU = 1e-4
 # K1 on layer 0's operands against the plain K1, bf16, each style
 DENSE_K1_STYLES = ("fused", "cascade", "cascade_fwd")
+
+
+def attention_per_forward(model, params, rng):
+    """One no-grad bf16 forward of 2 x 256 tokens launches the tensor-core
+    attention once a layer."""
+    from repro_torch.kernels.attention_tc import flash_attention_tc
+    cfg = model.cfg
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256)),
+                           device=model.device)
+    before = flash_attention_tc.launches
+    with torch.no_grad():
+        model.apply(params, toks)
+    got = flash_attention_tc.launches - before
+    check(got == cfg.n_layers, f"{cfg.name} forward: {got} tensor-core "
+          f"attention launches, expected {cfg.n_layers}")
+    emit({"phase": "attention_launches", "arch": cfg.name,
+          "per_forward": got})
 
 
 def dense_cfg(arch):
@@ -5060,7 +5242,8 @@ def dense_path(arch, dev, drive, rng):
                   lambda: fp8_cache_vs_cpu(model, params, toks)]
     steps.append(lambda: emulated_forwards(model, params, rng, per_fwd,
                                            steps=DENSE_EMU_STEPS))
-    drive(arch, ("fused_qmm",), *steps)
+    drive(arch, ("fused_qmm", "flash_attention_tc"), *steps)
+    attention_per_forward(model, params, rng)
     err = layer0_k1_vs_plain(model, params, rng)
     block0_vs_cpu(model, params, rng)
     profile_decode(model, params, rng)
@@ -5393,7 +5576,8 @@ def tinyllama_paths(dev, drive, rng, smi, errs):
     cfg = get_config(ARCH)
     model = LM(cfg, device=dev)
     params = model.init(seed=SEED)
-    dense, _ = drive(ARCH, ("fused_qmm", "quantize_nd", "fma_emu_matmul"),
+    dense, _ = drive(ARCH, ("fused_qmm", "quantize_nd", "fma_emu_matmul",
+                            "flash_attention_tc"),
                      lambda: serve_full_width(model, params, rng),
                      lambda: emulated_full_width(model, params, rng),
                      lambda: user_calls_full_width(model, params))
@@ -5530,6 +5714,7 @@ def main(paths=PATHS):
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.attention_tc import flash_attention_tc
     from repro_torch.kernels.fma_emu import fma_emu_matmul
     from repro_torch.kernels.fused import (fused_flash_attention, fused_qmm,
                                            ssm_scan_quantized)
@@ -5544,7 +5729,9 @@ def main(paths=PATHS):
     check_rounding(dev)
     errs.update(check_scan_kernels(dev))
     errs.update(check_flash_kernels(dev))
+    errs.update(check_attention_tc(dev))
     check_small_lm(dev)
+    attention_rows = time_attention_tc(dev, errs)
 
     wrappers = {"fused_qmm": fused_qmm, "quantize_nd": quantize_nd,
                 "fma_emu_matmul": fma_emu_matmul,
@@ -5555,17 +5742,20 @@ def main(paths=PATHS):
 
     def drive(path, kernels_of_path, *steps):
         """The path's steps with every launch count set to 0 just before
-        and read just after; each kernel of the path must have launched."""
-        for fn in wrappers.values():
+        and read just after; each kernel of the path must have launched.
+        Returns K1-K6's counts; the tensor-core attention's
+        (``flash_attention_tc``) is printed and checked beside them."""
+        for fn in (*wrappers.values(), flash_attention_tc):
             fn.launches = 0
         out = [step() for step in steps]
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in wrappers.items()}
-        emit({"phase": "launches", "path": path, "counts": counts})
+        every = dict(counts, flash_attention_tc=flash_attention_tc.launches)
+        emit({"phase": "launches", "path": path, "counts": every})
         for name in kernels_of_path:
-            check(counts[name] > 0, f"{name} was not launched on the "
+            check(every[name] > 0, f"{name} was not launched on the "
                   f"{path} path")
-        paths_run[path] = counts
+        paths_run[path] = every
         return counts, out
 
     rng = np.random.default_rng(SEED)
@@ -5589,6 +5779,7 @@ def main(paths=PATHS):
             errs["fused_qmm"] = max(errs["fused_qmm"],
                                     dense_path(arch, dev, drive, rng))
             release()
+    kernels += attention_rows
     for row in kernels:  # launches on every path of this run
         row["max_abs_err"] = errs[row["name"]]
         by_path = {path: counts[row["name"]]

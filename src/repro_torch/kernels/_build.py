@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quantize", "qmm", "ssm_scan", "flash_attn")
+SOURCES = ("quantize", "qmm", "ssm_scan", "flash_attn", "attention_tc")
 # no --use_fast_math and no -ftz=true: the rounding functions need IEEE
 # division and subnormals
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -7,7 +7,10 @@ softmax over (q-block, kv-block) pairs with the probabilities multiplied by
 the mask, so fully-masked rows yield 0 rather than NaN.  GQA is grouped,
 without repeating KV heads: q is viewed as (B, S, Hkv, G, D).  Scores and
 probability-value products are taken in f32 from the operands' values, as
-the JAX code's ``preferred_element_type=float32`` does.
+the JAX code's ``preferred_element_type=float32`` does.  On the card, a
+no-grad ``flash_attention`` of 16-bit operands runs the tensor-core kernel
+``kernels.attention_tc`` instead, which computes the same function with its
+own sum order and rescale edges; ``flash_blocks`` stays its plain version.
 """
 from __future__ import annotations
 
@@ -16,6 +19,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.attention_tc import flash_attention_tc, kernel_takes
+from repro_torch.telemetry.tracer import scope
 
 NEG_INF = -1.0e30
 
@@ -119,15 +125,46 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     triangle_skip (causal): q block i visits only the kv blocks that start
     at or before its last query, a static per-block extent (the JAX
     ``attention.flash_attention``'s): the blocks it skips are fully
-    masked."""
-    Sq, D = q.shape[1], q.shape[3]
+    masked.
+
+    Where ``attention_tc.kernel_takes`` holds (CUDA, bf16 or fp16 operands,
+    D and Dv multiples of 16 up to 256, no gradient needed) the
+    tensor-core kernel computes the same function with its own kv-tile
+    rescale edges and sum order, skips every wholly masked kv tile and
+    gives masked keys exactly 0; ``block_q``, ``block_k`` and
+    ``triangle_skip`` are then the plain version's edges, unused.
+    Everything else runs ``flash_blocks``.  Either runs in the phase scope
+    ``attn`` (``path`` "kernel" or "blocks", ``positions`` B * Sq,
+    ``heads``, ``d``, ``dv``)."""
+    B, Sq, Hq, D = q.shape
     kv_len = k.shape[1] if kv_len is None else kv_len
-    qb, kb, vb, _, _ = _blocks(q, k, v, block_q, block_k)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    out = flash_blocks(qb, kb, vb, scale=scale, causal=causal,
-                       window=window, kv_len=kv_len, q_offset=q_offset,
+    kernel = kernel_takes(q, k, v)
+    with scope("attn", device=q.device) as sc:
+        if sc.on:
+            sc.set(path="kernel" if kernel else "blocks", positions=B * Sq,
+                   heads=Hq, d=D, dv=v.shape[-1])
+        if kernel:
+            return flash_attention_tc(q, k, v, scale=scale, causal=causal,
+                                      window=window, q_offset=q_offset,
+                                      kv_len=kv_len)
+        return attention_blocks(q, k, v, scale=scale, causal=causal,
+                                window=window, q_offset=q_offset,
+                                kv_len=kv_len, block_q=block_q,
+                                block_k=block_k, triangle_skip=triangle_skip)
+
+
+def attention_blocks(q, k, v, *, scale: float, causal: bool, window: int,
+                     q_offset: int, kv_len, block_q: int = 1024,
+                     block_k: int = 1024, triangle_skip: bool = False):
+    """``flash_blocks`` on (B, S, H, D) operands -> (B, Sq, Hq, Dv) in q's
+    dtype: ``flash_attention``'s blockwise path, and the plain version the
+    card tests hold ``attention_tc.flash_attention_tc`` against."""
+    qb, kb, vb, _, _ = _blocks(q, k, v, block_q, block_k)
+    out = flash_blocks(qb, kb, vb, scale=scale, causal=causal, window=window,
+                       kv_len=kv_len, q_offset=q_offset,
                        triangle_skip=triangle_skip)
-    return unblock(out, Sq, q.dtype)
+    return unblock(out, q.shape[1], q.dtype)
 
 
 def chunk_attention(q, k, v, q_pos, k_pos, k_valid, *, window: int = 0):

@@ -38,6 +38,7 @@ PARENT = {"serve.step": None, "serve.admit": "serve.step",
           "serve.cache_write": "serve.prefill",
           "model.prefill_batched": "serve.prefill",
           "model.apply": "model.prefill_batched",
+          "attn": "model.apply",
           "serve.decode": "serve.step",
           "model.decode_scan": "serve.decode",
           "serve.commit": "serve.step"}
@@ -112,7 +113,7 @@ def test_engine_scopes_nest_and_count_the_prefill(lm, chunk):
     by_id = {s.scope_id: s for s in tr.scopes}
     names = {s.name for s in tr.scopes}
     want = set(PARENT) - ({"serve.cache_write", "model.prefill_batched",
-                           "model.apply"} if chunk else set())
+                           "model.apply", "attn"} if chunk else set())
     assert names == want
     for s in tr.scopes:
         parent = by_id[s.parent_id].name if s.parent_id is not None \
